@@ -1,16 +1,31 @@
-"""Label reduction for the class-subset metrics, in PyTorch.
+"""Online-distillation losses and label reduction, in PyTorch.
 
-Counterpart of ``label_lut`` and ``reduce_labels`` in
-``ams_tpu/distill/loss.py``: teacher labels in the full class-id space map
-to ids in the experiment's reduced space, and labels outside the selected
-set get reduced id 0 and weight 0 (the reference's one_hot -> gather ->
-argmax / reduce_sum).  The training losses belong to the training slice.
+Counterpart of ``ams_tpu/distill/loss.py``: the reference's class-reduced
+masked cross-entropy (logits gathered to the experiment's selected classes;
+teacher hard labels one-hot-encoded in the FULL class space and gathered,
+so labels outside the selected set get an all-zero row and weight 0; the
+loss is the mean CE over valid pixels), the soft-teacher path, and the
+per-class 'selective' diagnostic.
+
+Labels outside [0, num_classes) (the 255 "ignore" id) get weight 0 on
+every path here.  ``ams_tpu``'s fused path looks them up with a clamped
+gather instead, so it counts 255 as the last class; the port does not copy
+that (ROADMAP section C).
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from ams_tpu_torch.models.mobilenetv2_deeplab import (
+    _class_index,
+    grid_logits_nchw,
+    student_logits,
+)
+from ams_tpu_torch.models.resize import resize_nchw_matmul
 
 
 def label_lut(class_indices, num_classes):
@@ -25,19 +40,154 @@ def label_lut(class_indices, num_classes):
     return red, val
 
 
+@functools.lru_cache(maxsize=None)
+def _device_lut(class_indices, num_classes, device):
+    """``label_lut`` on ``device``, one upload per subset (outside
+    inference mode, so that autograd may use it)."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in label_lut(class_indices, num_classes))
+
+
 def reduce_labels(labels: torch.Tensor, class_indices, num_classes):
     """Teacher labels (full id space) -> (reduced ids int32, validity
     weights f32, filtered one-hot f32 over the reduced classes).  Ids
     outside [0, num_classes) have weight 0, as ``jax.nn.one_hot`` gives
     them an all-zero row."""
-    red, val = label_lut(class_indices, num_classes)
-    dev = labels.device
+    red, val = _device_lut(tuple(int(c) for c in class_indices),
+                           int(num_classes), labels.device)
     labels = labels.long()
     inside = (labels >= 0) & (labels < num_classes)
     idx = torch.where(inside, labels, torch.zeros_like(labels))
-    reduced = torch.from_numpy(red).to(dev)[idx]
-    weights = torch.from_numpy(val).to(dev)[idx] * inside
+    reduced = red[idx]
+    weights = val[idx] * inside
     reduced = torch.where(weights > 0, reduced, torch.zeros_like(reduced))
     filtered = torch.nn.functional.one_hot(
         reduced.long(), len(class_indices)).float() * weights[..., None]
     return reduced, weights, filtered
+
+
+def softmax_xent_with_soft_labels(logits, soft_labels):
+    """tf.nn.softmax_cross_entropy_with_logits semantics (last axis)."""
+    return -torch.sum(soft_labels * torch.log_softmax(logits, dim=-1), dim=-1)
+
+
+def masked_mean(x, mask):
+    """Mean over elements where mask is nonzero (boolean_mask +
+    reduce_mean); 0 for an empty mask."""
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def distill_loss(params, frames, labels, class_indices, num_classes, *,
+                 train=True, teacher_logits=None, stats_out=None,
+                 fused=False, class_mask=None, resize_via="gather"):
+    """Scalar distillation loss + aux dict.
+
+    Args:
+        params: flat student param dict (trainable + BN moving stats).
+        frames: (B, H, W, 3) float/uint8 in [0, 255].
+        labels: (B, H, W) integer teacher hard labels in the FULL class space.
+        class_indices: the selected class ids.
+        num_classes: total classes (19 or 21).
+        teacher_logits: optional (B, H, W, num_classes) for soft-teacher CE.
+        stats_out: optional dict to capture BN batch moments for the
+            moving-average update.
+        fused: with hard labels, the loss runs through the fused
+            upsample+CE kernel (``ops.fused_resize_ce``) on the grid logits;
+            the full-resolution logits are never formed.  Not with
+            ``class_mask`` (``ValueError``).
+        class_mask: optional (len(class_indices),) {0,1} vector narrowing the
+            live classes as data: masked positions get -1e9 logits and zero
+            label validity.
+        resize_via: "gather" = the TF-rounding-exact lerp resize; "matmul" =
+            the R@x@C^T form.
+
+    Returns:
+        (loss, aux).  On the standard paths aux = {'predictions',
+        'weights', 'logits_reduced', 'reduced_labels'}; on the fused path
+        aux = {'weights', 'reduced_labels', 'grid_logits_reduced'}, the grid
+        logits channels-last (B, gh, gw, n_sel).
+    """
+    if class_mask is not None and fused:
+        raise ValueError("class_mask is not supported on the fused path")
+    b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    ci = _class_index(class_indices, frames.device)
+    if teacher_logits is None and fused:
+        from ams_tpu_torch.ops.fused_resize_ce import fused_resize_ce
+
+        grid = grid_logits_nchw(params, frames, train=train,
+                                stats_out=stats_out)
+        grid = grid.float().index_select(1, ci).contiguous()
+        reduced_labels, weights, _ = reduce_labels(labels, class_indices,
+                                                   num_classes)
+        loss = fused_resize_ce(grid, reduced_labels.to(torch.int32),
+                               weights, (h, w))
+        aux = {"weights": weights, "reduced_labels": reduced_labels,
+               "grid_logits_reduced": grid.permute(0, 2, 3, 1)}
+        return loss, aux
+
+    if resize_via == "matmul":
+        grid = grid_logits_nchw(params, frames, train=train,
+                                stats_out=stats_out)
+        # the class gather commutes with the per-channel resize; doing it
+        # at grid level shrinks the resize and its backward
+        grid_red = grid.float().index_select(1, ci)
+        reduced_logits = resize_nchw_matmul(grid_red,
+                                            (h, w)).permute(0, 2, 3, 1)
+    elif resize_via == "gather":
+        logits = student_logits(params, frames, train=train,
+                                stats_out=stats_out)
+        reduced_logits = logits.index_select(3, ci)
+    else:
+        raise ValueError("resize_via must be 'gather' or 'matmul', not %r"
+                         % (resize_via,))
+    reduced_labels, weights, filtered_onehot = reduce_labels(
+        labels, class_indices, num_classes)
+    if class_mask is not None:
+        cm = class_mask.to(reduced_logits.dtype)
+        reduced_logits = torch.where(
+            cm > 0, reduced_logits,
+            torch.tensor(-1e9, dtype=reduced_logits.dtype,
+                         device=reduced_logits.device))
+        filtered_onehot = filtered_onehot * class_mask.to(
+            filtered_onehot.dtype)
+        weights = torch.sum(filtered_onehot, dim=-1)
+    if teacher_logits is not None:
+        red_teacher = teacher_logits.index_select(3, ci)
+        if class_mask is not None:
+            red_teacher = torch.where(
+                class_mask.to(red_teacher.dtype) > 0, red_teacher,
+                torch.tensor(-1e9, dtype=red_teacher.dtype,
+                             device=red_teacher.device))
+        soft = torch.softmax(red_teacher, dim=-1)
+        pixel_loss = softmax_xent_with_soft_labels(reduced_logits, soft)
+    else:
+        pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
+                                                   filtered_onehot)
+    loss = masked_mean(pixel_loss, weights > 0)
+    preds = torch.argmax(reduced_logits, dim=-1).to(torch.int32)
+    aux = {"predictions": preds, "weights": weights,
+           "logits_reduced": reduced_logits, "reduced_labels": reduced_labels}
+    return loss, aux
+
+
+def selective_loss(reduced_logits, reduced_labels, weights, n_selected):
+    """Per-class selective CE sum (the reference's graph_utils.py:410-418):
+    for each selected class i, mean CE over valid pixels where label==i or
+    prediction==i.  A diagnostic, not a training loss.  Keeps the
+    reference's NaN convention: a selected class absent from the batch (no
+    pixel with label==i or pred==i) makes that term, and the sum, NaN."""
+    preds = torch.argmax(reduced_logits, dim=-1)
+    onehot = torch.nn.functional.one_hot(reduced_labels.long(),
+                                         n_selected).float()
+    pixel_loss = softmax_xent_with_soft_labels(reduced_logits, onehot)
+    valid = weights > 0
+    total = torch.zeros((), dtype=pixel_loss.dtype,
+                        device=pixel_loss.device)
+    for i in range(n_selected):
+        sel = valid & ((reduced_labels == i) | (preds == i))
+        m = sel.to(pixel_loss.dtype)
+        # deliberately unguarded: 0/0 -> NaN matches reduce_mean(empty)
+        total = total + torch.sum(pixel_loss * m) / torch.sum(m)
+    return total

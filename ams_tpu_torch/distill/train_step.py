@@ -1,77 +1,287 @@
-"""Scoring functions of the unfolded deployed client, in PyTorch.
+"""The online-distillation round and the scoring functions, in PyTorch.
 
-Counterpart of ``make_predict_fn`` and ``make_predict_seq_fn`` in
-``ams_tpu/distill/train_step.py`` with ``train_bn=False``: inference-mode
-batch norm on the moving statistics, as the frozen client runs.
-Training-mode prediction and the distillation round belong to the
-training slice of the port.
+Counterpart of ``ams_tpu/distill/train_step.py``.  The JAX package runs
+the whole round as one ``lax.scan`` inside one XLA program; eager PyTorch
+runs it as a Python loop over iterations, with every tensor on the device
+and no host round trip inside the loop.  Each iteration:
+
+- draws its minibatch on the device from the uint8 frame and label
+  buffers, by a row of ``idx_seq`` or from a seeded ``torch.Generator``
+  (whose numbers are not ``jax.random``'s; parity runs through
+  ``idx_seq``);
+- runs the forward and backward with autograd over the trainable leaves;
+- takes the unmasked Adam step, then keeps the old value where the mask is
+  False (``torch.where``): masked coordinates stay bitwise put while the
+  Adam slots advance, as in the reference's ``train_coord``;
+- advances the BN moving averages every step, whatever the mask (they are
+  frozen under ``bn_train=False``).
+
+``coord_desc_auto`` with ``reselect`` peels iteration 0: one full step,
+then the top ``coord_frac`` of |delta| over all trainables (concatenated in
+sorted-key order, ``torch.quantile`` with linear interpolation, a strict
+``>``) is kept and the rest reverted.
+
+The losses stay on the device and are stacked at the end.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
 import torch
 
-from ams_tpu_torch.distill.loss import reduce_labels
-from ams_tpu_torch.models.mobilenetv2_deeplab import student_forward
+from ams_tpu_torch.distill.loss import (
+    distill_loss,
+    masked_mean,
+    reduce_labels,
+    softmax_xent_with_soft_labels,
+)
+from ams_tpu_torch.distill.optimizer import AdamState, adam_apply, adam_init  # noqa: F401
+from ams_tpu_torch.models import layers
+from ams_tpu_torch.models.mobilenetv2_deeplab import (
+    student_forward,
+    trainable_names,
+)
 from ams_tpu_torch.utils.metrics import (
     confusion_matrix,
     confusion_matrix_per_frame,
 )
 
 
-def _check_train_bn(train_bn):
-    if train_bn:
-        raise NotImplementedError(
-            "training-mode batch norm (train_bn=True) belongs to the "
-            "training slice of the port; the deployed client uses "
-            "train_bn=False")
+@dataclasses.dataclass(frozen=True)
+class DistillSpec:
+    """Static configuration of a distillation round; the fields of
+    ``ams_tpu``'s ``DistillSpec``.  The port computes in float32 on one
+    device: the fields it does not run yet raise ``NotImplementedError``
+    when the round is built."""
+
+    iters: int = 200                 # run.py 'iter' flag default
+    batch_size: int = 10             # run.py 'batch_size'
+    num_classes: int = 19
+    class_indices: Tuple[int, ...] = tuple(range(19))
+    strategy: str = "full_model"
+    coord_frac: float = 0.1
+    compute_dtype: str = "float32"   # "bfloat16": ROADMAP A12
+    batch_axis: Optional[str] = None     # sharded rounds: ROADMAP A11
+    width_axis: Optional[str] = None
+    conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A12
+    # Fused upsample+CE loss kernel (ops.fused_resize_ce): the same loss
+    # to f32 rounding without the full-resolution logits.  Off by default,
+    # as in the JAX package; PERF.md has the card's times for both paths.
+    fused_loss: bool = False
+    select_dtype: str = "float32"
+    loss_resize: str = "auto"        # "auto" = gather for f32 rounds
+    bn_train: bool = True
+
+    def resize_via(self) -> str:
+        return "gather" if self.loss_resize == "auto" else self.loss_resize
+
+    def check_supported(self) -> None:
+        if str(self.compute_dtype) != "float32":
+            raise NotImplementedError(
+                "compute_dtype %r: the port's round computes in float32; "
+                "the bf16 path is ROADMAP A12" % (self.compute_dtype,))
+        if self.select_dtype not in ("float32", "compute"):
+            raise ValueError("select_dtype must be 'float32' or 'compute'")
+        if self.batch_axis or self.width_axis:
+            raise NotImplementedError(
+                "batch_axis/width_axis: sharded rounds are ROADMAP A11")
+        if self.conv_precision not in ("auto", "highest"):
+            raise NotImplementedError(
+                "conv_precision %r: the port's convolutions run in full "
+                "f32 (TF32 off); other precisions are ROADMAP A12"
+                % (self.conv_precision,))
+        if self.loss_resize not in ("auto", "gather", "matmul"):
+            raise ValueError("loss_resize must be auto, gather or matmul")
 
 
-def softmax_xent_with_soft_labels(logits, soft_labels):
-    """tf.nn.softmax_cross_entropy_with_logits semantics."""
-    return -torch.sum(soft_labels * torch.log_softmax(logits, dim=-1), dim=-1)
+def split_params(params):
+    """-> (trainable, bn_state) by TF trainable-collection rules."""
+    tnames = set(trainable_names(params))
+    train = {k: v for k, v in params.items() if k in tnames}
+    state = {k: v for k, v in params.items() if k not in tnames}
+    return train, state
 
 
+def all_true_mask(params):
+    train, _ = split_params(params)
+    return {k: torch.ones(v.shape, dtype=torch.bool, device=v.device)
+            for k, v in train.items()}
+
+
+def _tree_where(mask, a, b):
+    return {k: torch.where(mask[k], a[k], b[k]) for k in a}
+
+
+def _flat_abs_delta(a, b):
+    return torch.cat([torch.abs(a[k] - b[k]).reshape(-1) for k in sorted(a)])
+
+
+def make_distill_round(spec: DistillSpec):
+    """Build the round function.
+
+    Returned signature:
+        round_fn(params, opt_state, frames_buf, labels_buf, n_valid, gen,
+                 lr, mask, reselect=True, class_mask=None, idx_seq=None)
+            -> (params, opt_state, mask, losses)
+
+    - params: flat dict (trainable + BN moving stats), on one device.
+    - frames_buf: (capacity, H, W, 3) uint8 device buffer; labels_buf:
+      (capacity, H, W) uint8 or int32.
+    - n_valid: number of live entries in the buffers (an int).
+    - gen: a ``torch.Generator`` on the buffers' device for the draws
+      (unused with ``idx_seq``).
+    - mask: bool dict over trainable params; see ``ams_tpu``'s round for
+      the strategies' use of it and of ``reselect``.
+    - losses: (iters,) f32 on the device, the per-iteration loss trace.
+
+    After a selecting call, ``round_fn.last_selection`` holds the
+    threshold and the count of |delta| values equal to it (0-dim device
+    tensors), for checks of the selected fraction.
+    """
+    spec.check_supported()
+    auto = spec.strategy == "coord_desc_auto"
+    ci = tuple(int(c) for c in spec.class_indices)
+
+    def loss_and_grads(params_t, bn_state, frames, labels, class_mask):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params_t.items()}
+        merged = dict(leaves)
+        merged.update(bn_state)
+        stats = {}
+        with torch.enable_grad():
+            loss, _aux = distill_loss(
+                merged, frames, labels, ci, spec.num_classes,
+                train=spec.bn_train,
+                stats_out=stats if spec.bn_train else None,
+                fused=spec.fused_loss, class_mask=class_mask,
+                resize_via=spec.resize_via())
+            keys = list(leaves)
+            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+        return loss.detach(), dict(zip(keys, grads)), stats
+
+    @torch.no_grad()
+    def round_fn(params, opt_state, frames_buf, labels_buf, n_valid, gen,
+                 lr, mask, reselect: bool = True, class_mask=None,
+                 idx_seq=None):
+        dev = frames_buf.device
+        if idx_seq is not None:
+            idx_seq = torch.as_tensor(idx_seq, device=dev).long()
+            if idx_seq.dim() != 2 or idx_seq.shape[1] != spec.batch_size:
+                raise ValueError(
+                    "idx_seq must be (iters, batch_size=%d); got %r"
+                    % (spec.batch_size, tuple(idx_seq.shape)))
+            if idx_seq.shape[0] < spec.iters:
+                raise ValueError(
+                    "idx_seq has %d rows but the round runs %d iterations"
+                    % (idx_seq.shape[0], spec.iters))
+        params_t, bn_state = split_params(params)
+        before = params_t   # round-start snapshot (auto reverts to this)
+        hi = max(int(n_valid), 1)
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+
+        def draw(it):
+            if idx_seq is not None:
+                idx = idx_seq[it]
+            else:
+                idx = torch.randint(0, hi, (spec.batch_size,),
+                                    generator=gen, device=dev)
+            return frames_buf[idx].float(), labels_buf[idx]
+
+        def step(params_t, bn_state, opt_state, it):
+            frames, labels = draw(it)
+            loss, grads, stats = loss_and_grads(params_t, bn_state, frames,
+                                                labels, class_mask)
+            stepped, opt_state = adam_apply(params_t, grads, opt_state, lr)
+            if spec.bn_train:
+                # every step, for every BN, whatever the mask; the recorded
+                # variance is already Bessel-corrected (bessel=False here)
+                keys = list(bn_state)
+                moving = [bn_state[k] for k in keys]
+                diff = torch._foreach_mul(
+                    torch._foreach_sub(moving, [stats[k] for k in keys]),
+                    1.0 - layers.BN_DECAY)
+                bn_state = dict(zip(keys, torch._foreach_sub(moving, diff)))
+            return loss, stepped, bn_state, opt_state
+
+        first_iter = 0
+        losses = []
+        if auto and reselect and spec.iters > 0:
+            loss0, stepped, bn_state, opt_state = step(params_t, bn_state,
+                                                       opt_state, 0)
+            delta = _flat_abs_delta(stepped, before)
+            thr = torch.quantile(delta, 1.0 - spec.coord_frac,
+                                 interpolation="linear")
+            round_fn.last_selection = {"threshold": thr,
+                                       "ties": torch.sum(delta == thr)}
+            mask = {k: torch.abs(stepped[k] - before[k]) > thr
+                    for k in stepped}
+            params_t = _tree_where(mask, stepped, before)
+            first_iter = 1
+            losses.append(loss0)
+
+        for it in range(first_iter, spec.iters):
+            loss, stepped, bn_state, opt_state = step(params_t, bn_state,
+                                                      opt_state, it)
+            params_t = _tree_where(mask, stepped, params_t)
+            losses.append(loss)
+
+        out = dict(params_t)
+        out.update(bn_state)
+        losses = torch.stack(losses) if losses else \
+            torch.zeros((0,), dtype=torch.float32, device=dev)
+        return out, opt_state, mask, losses
+
+    round_fn.last_selection = None
+    return round_fn
+
+
+def _scoring(reduced_logits, labels, class_indices, num_classes):
+    red_labels, weights, filtered_onehot = reduce_labels(
+        labels, class_indices, num_classes)
+    pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
+                                               filtered_onehot)
+    return red_labels, weights, pixel_loss
+
+
+@functools.lru_cache(maxsize=None)
 def make_predict_fn(num_classes, class_indices, *, train_bn: bool):
     """predict(params, frames, labels) -> (preds in reduced ids, confusion
     matrix over the selected classes with invalid-label weights zeroed,
-    mean CE over valid pixels)."""
-    _check_train_bn(train_bn)
+    mean CE over valid pixels).  ``train_bn=True`` normalizes with the
+    batch statistics, as the reference's server-side (non-frozen) graph
+    does; the deployed client uses the moving statistics."""
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 
     @torch.no_grad()
     def predict(params, frames, labels):
         reduced_logits, preds = student_forward(params, frames,
-                                                class_indices)
-        red_labels, weights, filtered_onehot = reduce_labels(
-            labels, class_indices, num_classes)
+                                                class_indices, train=train_bn)
+        red_labels, weights, pixel_loss = _scoring(
+            reduced_logits, labels, class_indices, num_classes)
         cm = confusion_matrix(red_labels, preds, n_sel, weights)
-        pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
-                                                   filtered_onehot)
-        loss = torch.sum(pixel_loss * weights) / torch.clamp(
-            torch.sum(weights), min=1.0)
-        return preds, cm, loss
+        return preds, cm, masked_mean(pixel_loss, weights)
 
     return predict
 
 
+@functools.lru_cache(maxsize=None)
 def make_predict_seq_fn(num_classes, class_indices, *, train_bn: bool):
     """Per-frame metrics over a frame batch: predict_seq(params, frames,
     labels) -> (preds (B,H,W), confusion matrices (B,C,C), losses (B,))."""
-    _check_train_bn(train_bn)
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 
     @torch.no_grad()
     def predict_seq(params, frames, labels):
         reduced_logits, preds = student_forward(params, frames,
-                                                class_indices)
-        red_labels, weights, filtered_onehot = reduce_labels(
-            labels, class_indices, num_classes)
+                                                class_indices, train=train_bn)
+        red_labels, weights, pixel_loss = _scoring(
+            reduced_logits, labels, class_indices, num_classes)
         cm_f = confusion_matrix_per_frame(red_labels, preds, n_sel, weights)
-        pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
-                                                   filtered_onehot)
         wsum_f = torch.clamp(torch.sum(weights, dim=(1, 2)), min=1.0)
         loss_f = torch.sum(pixel_loss * weights, dim=(1, 2)) / wsum_f
         return preds, cm_f, loss_f

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3          # FusedBatchNormV3 epsilon in the reference meta graph
+BN_DECAY = 0.9         # moving-average decay of the reference's BN updates
 
 
 def _same_pad(size: int, k: int, stride: int, rate: int):
@@ -56,6 +57,36 @@ def batch_norm_infer(x, gamma, beta, mean, var, eps=BN_EPS):
     scale = gamma * inv
     offset = beta - mean * gamma * inv
     return x * scale[:, None, None] + offset[:, None, None]
+
+
+def batch_norm_train(x, gamma, beta, eps=BN_EPS):
+    """Training batch norm with per-batch statistics over N, H, W of a
+    (B, C, H, W) tensor.
+
+    Returns (y, batch_mean, batch_var), batch_var being the *biased*
+    variance used for normalization (FusedBatchNormV3 semantics), computed
+    as E[x^2] - E[x]^2 and clamped at 0, as the JAX package does.
+    """
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3))
+                      - torch.square(mean), min=0.0)
+    inv = torch.rsqrt(var + eps) * gamma
+    y = (xf - mean[:, None, None]) * inv[:, None, None] + beta[:, None, None]
+    return y.to(x.dtype), mean, var
+
+
+def moving_average_update(moving, batch_stat, n_elems, decay=BN_DECAY,
+                          bessel=True):
+    """moving <- moving - (moving - stat) * (1 - decay).
+
+    TF's fused BN feeds the moving-variance update with the Bessel-corrected
+    (unbiased) batch variance; pass ``n_elems`` = N*H*W of the normalized
+    axes.
+    """
+    if bessel and n_elems > 1:
+        batch_stat = batch_stat * (n_elems / (n_elems - 1))
+    return moving - (moving - batch_stat) * (1.0 - decay)
 
 
 def relu6(x):

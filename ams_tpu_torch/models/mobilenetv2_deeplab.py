@@ -1,4 +1,4 @@
-"""DeeplabV3 + MobileNetV2 student network, inference mode, in PyTorch.
+"""DeeplabV3 + MobileNetV2 student network, in PyTorch.
 
 Counterpart of ``ams_tpu/models/mobilenetv2_deeplab.py``, which documents
 the architecture against the reference's TF1 meta graph: +1 pad with
@@ -11,12 +11,16 @@ tensors in TF shapes (see ``layers``).  Public functions take frames as
 ``(B, H, W, 3)`` and return channels-last logits or ``(B, H, W)`` ids like
 the JAX package; the internals run channels-first.
 
-Only inference mode (moving statistics) is here: training-mode batch norm
-belongs to the training slice of the port.
+``train=False`` (the default) normalizes with the moving statistics, as
+the deployed client does.  ``train=True`` normalizes with the batch
+statistics, as the reference's training graph does, and records in
+``stats_out`` (a dict, if given) the batch moments that the moving-average
+update consumes.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -119,12 +123,29 @@ def preprocess(frames: torch.Tensor) -> torch.Tensor:
     pad +1 bottom row and right column with 127.5, then ``x*2/255-1``."""
     x = frames.float().permute(0, 3, 1, 2)
     x = torch.nn.functional.pad(x, (0, 1, 0, 1), value=127.5)
-    two_over_255 = torch.tensor(2.0 / 255.0, dtype=torch.float32,
-                                device=x.device)
-    return x * two_over_255 - 1.0
+    return x * _two_over_255(x.device) - 1.0
 
 
-def _bn(params, prefix, x, eps=layers.BN_EPS):
+@functools.lru_cache(maxsize=None)
+def _two_over_255(device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(2.0 / 255.0, dtype=torch.float32, device=device)
+
+
+def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
+    if train:
+        y, mean, var = layers.batch_norm_train(
+            x, params[prefix + "/BatchNorm/gamma"],
+            params[prefix + "/BatchNorm/beta"], eps=eps)
+        if stats_out is not None:
+            # TF's fused BN hands the *Bessel-corrected* variance to
+            # AssignMovingAvg while normalizing with the biased one.
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            bessel = n / (n - 1) if n > 1 else 1.0
+            stats_out[prefix + "/BatchNorm/moving_mean"] = mean.detach()
+            stats_out[prefix + "/BatchNorm/moving_variance"] = \
+                (var * bessel).detach()
+        return y
     return layers.batch_norm_infer(
         x, params[prefix + "/BatchNorm/gamma"],
         params[prefix + "/BatchNorm/beta"],
@@ -132,24 +153,26 @@ def _bn(params, prefix, x, eps=layers.BN_EPS):
         params[prefix + "/BatchNorm/moving_variance"], eps=eps)
 
 
-def backbone(params: Params, x: torch.Tensor) -> torch.Tensor:
+def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
+             stats_out=None) -> torch.Tensor:
     """MobileNetV2 trunk on preprocessed (B, 3, H, W) input; returns
     (B, 320, ceil(H/16), ceil(W/16))."""
+    bn = dict(train=train, stats_out=stats_out)
     x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2)
-    x = layers.relu6(_bn(params, "MobilenetV2/Conv", x))
+    x = layers.relu6(_bn(params, "MobilenetV2/Conv", x, **bn))
     cin = STEM_CHANNELS
     for i, (exp, cout, stride, rate) in enumerate(_BLOCKS):
         name = block_name(i)
         inp = x
         if exp:
             x = layers.conv2d(x, params[name + "/expand/weights"])
-            x = layers.relu6(_bn(params, name + "/expand", x))
+            x = layers.relu6(_bn(params, name + "/expand", x, **bn))
         x = layers.depthwise_conv2d(
             x, params[name + "/depthwise/depthwise_weights"],
             stride=stride, rate=rate)
-        x = layers.relu6(_bn(params, name + "/depthwise", x))
+        x = layers.relu6(_bn(params, name + "/depthwise", x, **bn))
         x = layers.conv2d(x, params[name + "/project/weights"])
-        x = _bn(params, name + "/project", x)
+        x = _bn(params, name + "/project", x, **bn)
         if stride == 1 and cin == cout:
             x = x + inp
         cin = cout
@@ -157,21 +180,23 @@ def backbone(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def deeplab_head(params: Params, feat: torch.Tensor,
-                 out_hw: Optional[Tuple[int, int]]) -> torch.Tensor:
+                 out_hw: Optional[Tuple[int, int]], *, train: bool = False,
+                 stats_out=None) -> torch.Tensor:
     """ASPP (1x1 + image pooling) -> projection -> per-class logits, all
     (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits)."""
+    bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out)
     b, _, fh, fw = feat.shape
     pooled = feat.float().mean(dim=(2, 3), keepdim=True)
     pooled = layers.conv2d(pooled, params["image_pooling/weights"])
-    pooled = torch.relu(_bn(params, "image_pooling", pooled, eps=HEAD_BN_EPS))
+    pooled = torch.relu(_bn(params, "image_pooling", pooled, **bn))
     pooled = pooled.expand(b, pooled.shape[1], fh, fw)
 
     aspp = layers.conv2d(feat, params["aspp0/weights"])
-    aspp = torch.relu(_bn(params, "aspp0", aspp, eps=HEAD_BN_EPS))
+    aspp = torch.relu(_bn(params, "aspp0", aspp, **bn))
 
     x = torch.cat([pooled, aspp], dim=1)
     x = layers.conv2d(x, params["concat_projection/weights"])
-    x = torch.relu(_bn(params, "concat_projection", x, eps=HEAD_BN_EPS))
+    x = torch.relu(_bn(params, "concat_projection", x, **bn))
 
     x = layers.conv2d(x, params["logits/semantic/weights"])
     x = x + params["logits/semantic/biases"][:, None, None]
@@ -180,26 +205,43 @@ def deeplab_head(params: Params, feat: torch.Tensor,
     return resize_nchw(x, out_hw)
 
 
-def grid_logits_nchw(params: Params, frames: torch.Tensor) -> torch.Tensor:
+def grid_logits_nchw(params: Params, frames: torch.Tensor, *,
+                     train: bool = False, stats_out=None) -> torch.Tensor:
     """(B, H, W, 3) frames -> (B, num_classes, gh, gw) grid logits."""
-    return deeplab_head(params, backbone(params, preprocess(frames)), None)
+    bn = dict(train=train, stats_out=stats_out)
+    return deeplab_head(params, backbone(params, preprocess(frames), **bn),
+                        None, **bn)
 
 
-def student_grid_logits(params: Params, frames: torch.Tensor) -> torch.Tensor:
+def student_grid_logits(params: Params, frames: torch.Tensor, *,
+                        train: bool = False, stats_out=None) -> torch.Tensor:
     """Forward stopping at the feature-grid logits: (B, gh, gw, C)."""
-    return grid_logits_nchw(params, frames).permute(0, 2, 3, 1)
+    return grid_logits_nchw(params, frames, train=train,
+                            stats_out=stats_out).permute(0, 2, 3, 1)
 
 
-def student_logits(params: Params, frames: torch.Tensor) -> torch.Tensor:
+def student_logits(params: Params, frames: torch.Tensor, *,
+                   train: bool = False, stats_out=None) -> torch.Tensor:
     """Raw frames -> per-pixel class logits (B, H, W, num_classes) f32."""
     h, w = frames.shape[1], frames.shape[2]
-    feat = backbone(params, preprocess(frames))
-    return deeplab_head(params, feat, (h, w)).permute(0, 2, 3, 1)
+    bn = dict(train=train, stats_out=stats_out)
+    feat = backbone(params, preprocess(frames), **bn)
+    return deeplab_head(params, feat, (h, w), **bn).permute(0, 2, 3, 1)
 
 
 def _class_index(class_indices, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(class_indices), dtype=torch.long,
-                           device=device)
+    return _class_index_cached(tuple(int(c) for c in class_indices),
+                               torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _class_index_cached(class_indices, device) -> torch.Tensor:
+    """One upload per (subset, device): a host-to-device copy per call
+    would wait for the device.  Made outside inference mode, so that
+    autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.asarray(class_indices), dtype=torch.long,
+                               device=device)
 
 
 def student_predict_fast(params: Params, frames: torch.Tensor,
@@ -215,11 +257,12 @@ def student_predict_fast(params: Params, frames: torch.Tensor,
     return fused_resize_argmax(grid.contiguous(), (h, w))
 
 
-def student_forward(params: Params, frames: torch.Tensor, class_indices
+def student_forward(params: Params, frames: torch.Tensor, class_indices, *,
+                    train: bool = False, stats_out=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Logits gathered to the experiment's class subset (B, H, W, n_sel)
     and their argmax (B, H, W) int32, ids in the REDUCED space."""
-    logits = student_logits(params, frames)
+    logits = student_logits(params, frames, train=train, stats_out=stats_out)
     reduced = logits.index_select(3, _class_index(class_indices,
                                                   logits.device))
     preds = torch.argmax(reduced, dim=-1).to(torch.int32)

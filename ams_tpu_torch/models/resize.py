@@ -13,6 +13,8 @@ channels-first layout.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,6 +37,24 @@ def _lerp_weights(in_size: int, out_size: int):
     return lo, hi, w
 
 
+@functools.lru_cache(maxsize=None)
+def _device_lerp(in_size: int, out_size: int, device: torch.device):
+    """(lo int64, hi int64, w f32) lerp tables on ``device``, one upload
+    per shape: a host-to-device copy per call would wait for the device.
+    Made outside inference mode, so that autograd may save them."""
+    lo, hi, w = _lerp_weights(in_size, out_size)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(lo).long().to(device),
+                torch.from_numpy(hi).long().to(device),
+                torch.from_numpy(w).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_matrix(in_size: int, out_size: int, device: torch.device):
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
+
+
 def resize_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
     """Align-corners bilinear resize of a (B, C, H, W) tensor, in f32."""
     h, w = x.shape[2], x.shape[3]
@@ -43,10 +63,8 @@ def resize_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
         return x
     orig_dtype = x.dtype
     x = x.float()
-    dev = x.device
-    ylo, yhi, yw = (torch.from_numpy(a).to(dev) for a in _lerp_weights(h, oh))
-    xlo, xhi, xw = (torch.from_numpy(a).to(dev) for a in _lerp_weights(w, ow))
-    ylo, yhi, xlo, xhi = ylo.long(), yhi.long(), xlo.long(), xhi.long()
+    ylo, yhi, yw = _device_lerp(h, oh, x.device)
+    xlo, xhi, xw = _device_lerp(w, ow, x.device)
 
     top = x.index_select(2, ylo)
     bot = x.index_select(2, yhi)
@@ -66,6 +84,30 @@ def resize_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
     """tf.image.resize_bilinear(align_corners=True, half_pixel_centers=False)
     on a (B, H, W, C) tensor; returns (B, out_h, out_w, C) of x.dtype."""
     return resize_nchw(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
+
+
+def resize_nchw_matmul(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """``resize_nchw`` as two dense products ``R @ x @ C^T`` on a
+    (B, C, H, W) tensor.  Forward values agree with the gather form to f32
+    reassociation, not bit for bit; its backward is two more products."""
+    h, w = x.shape[2], x.shape[3]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (oh, ow) == (h, w):
+        return x
+    orig_dtype = x.dtype
+    x = x.float()
+    r = _device_matrix(h, oh, x.device)       # (oh, h)
+    cm = _device_matrix(w, ow, x.device)      # (ow, w)
+    t = torch.einsum("Hg,bcgw->bcHw", r, x)
+    out = torch.einsum("Ww,bcHw->bcHW", cm, t)
+    return out.to(orig_dtype)
+
+
+def resize_bilinear_ac_matmul(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Counterpart of ``resize_bilinear_ac_matmul``: the align-corners map
+    of ``resize_bilinear_ac`` as dense products, on (B, H, W, C)."""
+    return resize_nchw_matmul(x.permute(0, 3, 1, 2),
+                              out_hw).permute(0, 2, 3, 1)
 
 
 def resize_matrix(in_size: int, out_size: int) -> np.ndarray:

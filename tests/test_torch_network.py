@@ -176,14 +176,17 @@ def test_client_rejects_what_is_not_ported(case, tmp_path):
     params = case[0]
     kw = dict(class_weights_exp=configs.class_weights(EXP), height=64,
               device="cpu")
+    for frozen in (True, False):
+        with pytest.raises(NotImplementedError):
+            TorchNetwork(dict(params), frozen=frozen, scale=[1],
+                         mini_batch_size=4, lr=1e-3,
+                         compute_dtype="bfloat16", **kw)
+    tf_prefix = os.path.join(str(tmp_path), "model.ckpt")
+    open(tf_prefix + ".index", "wb").close()
     with pytest.raises(NotImplementedError):
-        TorchNetwork(dict(params), frozen=False, scale=[1],
-                     mini_batch_size=4, lr=1e-3, **kw)
-    with pytest.raises(NotImplementedError):
-        TorchNetwork(dict(params), frozen=True, compute_dtype="bfloat16",
-                     **kw)
+        TorchNetwork(tf_prefix, frozen=True, **kw)
     net = TorchNetwork(dict(params), frozen=True, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         net.train_with_deque([], [], 1)
     with pytest.raises(FileNotFoundError):
         TorchNetwork(os.path.join(str(tmp_path), "missing"), frozen=True,
