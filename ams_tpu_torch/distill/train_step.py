@@ -63,10 +63,10 @@ class DistillSpec:
     class_indices: Tuple[int, ...] = tuple(range(19))
     strategy: str = "full_model"
     coord_frac: float = 0.1
-    compute_dtype: str = "float32"   # "bfloat16": ROADMAP A12
-    batch_axis: Optional[str] = None     # sharded rounds: ROADMAP A11
+    compute_dtype: str = "float32"   # "bfloat16": ROADMAP A7
+    batch_axis: Optional[str] = None     # sharded rounds: ROADMAP A6
     width_axis: Optional[str] = None
-    conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A12
+    conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A7
     # Fused upsample+CE loss kernel (ops.fused_resize_ce): the same loss
     # to f32 rounding without the full-resolution logits.  Off by default,
     # as in the JAX package; PERF.md has the card's times for both paths.
@@ -82,16 +82,16 @@ class DistillSpec:
         if str(self.compute_dtype) != "float32":
             raise NotImplementedError(
                 "compute_dtype %r: the port's round computes in float32; "
-                "the bf16 path is ROADMAP A12" % (self.compute_dtype,))
+                "the bf16 path is ROADMAP A7" % (self.compute_dtype,))
         if self.select_dtype not in ("float32", "compute"):
             raise ValueError("select_dtype must be 'float32' or 'compute'")
         if self.batch_axis or self.width_axis:
             raise NotImplementedError(
-                "batch_axis/width_axis: sharded rounds are ROADMAP A11")
+                "batch_axis/width_axis: sharded rounds are ROADMAP A6")
         if self.conv_precision not in ("auto", "highest"):
             raise NotImplementedError(
                 "conv_precision %r: the port's convolutions run in full "
-                "f32 (TF32 off); other precisions are ROADMAP A12"
+                "f32 (TF32 off); other precisions are ROADMAP A7"
                 % (self.conv_precision,))
         if self.loss_resize not in ("auto", "gather", "matmul"):
             raise ValueError("loss_resize must be auto, gather or matmul")
@@ -246,20 +246,31 @@ def _scoring(reduced_logits, labels, class_indices, num_classes):
     return red_labels, weights, pixel_loss
 
 
+def _check_predict_dtype(train_bn: bool, compute_dtype) -> None:
+    if train_bn and layers.as_dtype(compute_dtype) != torch.float32:
+        raise NotImplementedError(
+            "training-mode BN predicts in float32; the bf16 server path is "
+            "ROADMAP A7")
+
+
 @functools.lru_cache(maxsize=None)
-def make_predict_fn(num_classes, class_indices, *, train_bn: bool):
+def make_predict_fn(num_classes, class_indices, *, train_bn: bool,
+                    compute_dtype=torch.float32):
     """predict(params, frames, labels) -> (preds in reduced ids, confusion
     matrix over the selected classes with invalid-label weights zeroed,
     mean CE over valid pixels).  ``train_bn=True`` normalizes with the
     batch statistics, as the reference's server-side (non-frozen) graph
-    does; the deployed client uses the moving statistics."""
+    does, in float32 only (bf16 training is ROADMAP A7); the deployed
+    client uses the moving statistics, in either compute type."""
+    _check_predict_dtype(train_bn, compute_dtype)
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 
     @torch.no_grad()
     def predict(params, frames, labels):
-        reduced_logits, preds = student_forward(params, frames,
-                                                class_indices, train=train_bn)
+        reduced_logits, preds = student_forward(
+            params, frames, class_indices, train=train_bn,
+            compute_dtype=compute_dtype)
         red_labels, weights, pixel_loss = _scoring(
             reduced_logits, labels, class_indices, num_classes)
         cm = confusion_matrix(red_labels, preds, n_sel, weights)
@@ -269,16 +280,19 @@ def make_predict_fn(num_classes, class_indices, *, train_bn: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def make_predict_seq_fn(num_classes, class_indices, *, train_bn: bool):
+def make_predict_seq_fn(num_classes, class_indices, *, train_bn: bool,
+                        compute_dtype=torch.float32):
     """Per-frame metrics over a frame batch: predict_seq(params, frames,
     labels) -> (preds (B,H,W), confusion matrices (B,C,C), losses (B,))."""
+    _check_predict_dtype(train_bn, compute_dtype)
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 
     @torch.no_grad()
     def predict_seq(params, frames, labels):
-        reduced_logits, preds = student_forward(params, frames,
-                                                class_indices, train=train_bn)
+        reduced_logits, preds = student_forward(
+            params, frames, class_indices, train=train_bn,
+            compute_dtype=compute_dtype)
         red_labels, weights, pixel_loss = _scoring(
             reduced_logits, labels, class_indices, num_classes)
         cm_f = confusion_matrix_per_frame(red_labels, preds, n_sel, weights)

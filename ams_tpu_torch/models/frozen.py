@@ -12,8 +12,20 @@ Folding is mathematically identical to inference-mode BN, not
 bit-identical (float re-association), so a folded client's ids agree with
 the unfolded client's off near-ties only.
 
-Only the unfused forward is here; the fused MBConv variants
-(``fused_blocks``) wait for the port's MBConv kernels.
+The folded forward runs in float32 (the default) or, with
+``compute_dtype=bfloat16``, in bf16 storage with f32 accumulation; the
+preprocessing and the image pooling's mean stay f32, as in JAX.  In bf16,
+``fused_blocks`` routes inverted-residual blocks through the port's fused
+MBConv kernel (``ops.fused_mbconv``, ``ops.fused_mbconv_banded``), so the
+6x-expanded mid tensor never reaches device memory:
+
+- ``True``: every run of consecutive stride-1 blocks is one fused stage
+  (the counterpart of JAX's K3).  JAX runs a stage unfused when its VMEM
+  estimate fails (``stage_fits_vmem``); on the card every stage fits a
+  shared-memory tile, so the port fuses all of them (ROADMAP §C);
+- ``"banded"``: each block whose input area is at least ``banded_min_hw``
+  and whose geometry ``banded_supported`` accepts runs fused (JAX's K4),
+  stride 2 included; the others run unfused, as in JAX.
 """
 
 from __future__ import annotations
@@ -91,71 +103,122 @@ def is_folded(params) -> bool:
     return any(k.endswith("/folded_bias") for k in params)
 
 
-def _grid_logits_folded_nchw(folded: Params, frames: torch.Tensor):
-    """Folded forward to the (B, num_classes, gh, gw) grid logits."""
+def _grid_logits_folded_nchw(folded: Params, frames: torch.Tensor,
+                             compute_dtype=torch.float32, fused_blocks=False,
+                             banded_min_hw=96 * 96):
+    """Folded forward to the (B, num_classes, gh, gw) grid logits, in the
+    compute type."""
+    cd = layers.as_dtype(compute_dtype)
+    if fused_blocks not in (False, True, "banded"):
+        raise ValueError("fused_blocks must be False, True or 'banded', got "
+                         "%r" % (fused_blocks,))
+    if fused_blocks and cd != torch.bfloat16:
+        raise ValueError("fused_blocks is the bf16 fast path; got "
+                         "compute_dtype %s" % cd)
+    # the preprocessing stays f32 on the bf16 path too, as in JAX
     x = preprocess(frames)
 
     def conv(prefix, x, stride=1, rate=1, act=None):
         y = layers.conv2d(x, folded[prefix + "/weights"], stride=stride,
-                          rate=rate)
-        y = y + folded[prefix + "/folded_bias"][:, None, None]
+                          rate=rate, compute_dtype=cd)
+        y = y + folded[prefix + "/folded_bias"].to(y.dtype)[:, None, None]
         return act(y) if act else y
 
     def dwconv(prefix, x, stride=1, rate=1, act=None):
         y = layers.depthwise_conv2d(x, folded[prefix + "/depthwise_weights"],
-                                    stride=stride, rate=rate)
-        y = y + folded[prefix + "/folded_bias"][:, None, None]
+                                    stride=stride, rate=rate,
+                                    compute_dtype=cd)
+        y = y + folded[prefix + "/folded_bias"].to(y.dtype)[:, None, None]
         return act(y) if act else y
 
-    x = conv("MobilenetV2/Conv", x, stride=2, act=layers.relu6)
-    cin = STEM_CHANNELS
-    for i, (exp, cout, stride, rate) in enumerate(_BLOCKS):
-        name = block_name(i)
+    def unfused_block(x, name, exp, stride, rate, residual):
         inp = x
         if exp:
             x = conv(name + "/expand", x, act=layers.relu6)
         x = dwconv(name + "/depthwise", x, stride=stride, rate=rate,
                    act=layers.relu6)
         x = conv(name + "/project", x)
-        if stride == 1 and cin == cout:
-            x = x + inp
+        return x + inp if residual else x
+
+    if fused_blocks:
+        from ams_tpu_torch.ops.fused_mbconv import fused_block, run_fused_stage
+        from ams_tpu_torch.ops.fused_mbconv_banded import (
+            banded_supported,
+            mbconv_banded,
+        )
+
+    x = conv("MobilenetV2/Conv", x, stride=2, act=layers.relu6)
+    cin = STEM_CHANNELS
+    pending = []  # consecutive stride-1 blocks awaiting a fused stage
+    for i, (exp, cout, stride, rate) in enumerate(_BLOCKS):
+        name = block_name(i)
+        residual = stride == 1 and cin == cout
         cin = cout
+        if fused_blocks == "banded":
+            h_in, w_in = x.shape[2], x.shape[3]
+            if (h_in * w_in >= banded_min_hw
+                    and banded_supported(h_in, w_in, stride, rate)):
+                bl = fused_block(folded, name, bool(exp), rate, residual)
+                x = mbconv_banded(x, bl.w_expand, bl.b_expand, bl.w_dw,
+                                  bl.b_dw, bl.w_proj, bl.b_proj,
+                                  stride=stride, residual=residual)
+            else:
+                x = unfused_block(x, name, exp, stride, rate, residual)
+            continue
+        if fused_blocks and stride == 1:
+            pending.append(fused_block(folded, name, bool(exp), rate,
+                                       residual))
+            continue
+        if pending:
+            x = run_fused_stage(x, pending)
+            pending = []
+        x = unfused_block(x, name, exp, stride, rate, residual)
+    if pending:
+        x = run_fused_stage(x, pending)
 
     b, _, fh, fw = x.shape
     pooled = x.float().mean(dim=(2, 3), keepdim=True)
-    pooled = conv("image_pooling", pooled, act=torch.relu)
+    pooled = conv("image_pooling", pooled.to(x.dtype), act=torch.relu)
     pooled = pooled.expand(b, pooled.shape[1], fh, fw)
     aspp = conv("aspp0", x, act=torch.relu)
-    y = torch.cat([pooled, aspp], dim=1)
+    y = torch.cat([pooled.to(aspp.dtype), aspp], dim=1)
     y = conv("concat_projection", y, act=torch.relu)
-    y = layers.conv2d(y, folded["logits/semantic/weights"])
-    return y + folded["logits/semantic/biases"][:, None, None]
+    y = layers.conv2d(y, folded["logits/semantic/weights"], compute_dtype=cd)
+    return y + folded["logits/semantic/biases"].to(y.dtype)[:, None, None]
 
 
 def student_forward_folded(folded: Params, frames: torch.Tensor,
-                           class_indices=None, *, out_hw="input"
+                           class_indices=None, *,
+                           compute_dtype=torch.float32, out_hw="input",
+                           fused_blocks=False, banded_min_hw=96 * 96
                            ) -> torch.Tensor:
     """Forward through the folded client model (no batch-norm ops).
-    Returns channels-last logits: (B, H, W, C) resized to ``out_hw``
-    ("input" = the frame size), or the (B, gh, gw, C) grid for None."""
+    Returns channels-last logits: (B, H, W, C) f32 resized to ``out_hw``
+    ("input" = the frame size), or the (B, gh, gw, C) grid in the compute
+    type for None."""
     h, w = frames.shape[1], frames.shape[2]
-    y = _grid_logits_folded_nchw(folded, frames)
+    y = _grid_logits_folded_nchw(folded, frames, compute_dtype, fused_blocks,
+                                 banded_min_hw)
     if class_indices is not None:
         y = y.index_select(1, _class_index(class_indices, y.device))
     if out_hw is not None:
-        y = resize_nchw(y, (h, w) if out_hw == "input" else out_hw)
+        y = resize_nchw(y.float(), (h, w) if out_hw == "input" else out_hw)
     return y.permute(0, 2, 3, 1)
 
 
 def student_predict_fast_folded(folded: Params, frames: torch.Tensor,
-                                class_indices) -> torch.Tensor:
+                                class_indices, *,
+                                compute_dtype=torch.float32,
+                                fused_blocks=False) -> torch.Tensor:
     """Folded client fast path: forward with no BN ops + the fused
     upsample+argmax kernel (the deployed-edge hot loop)."""
     from ams_tpu_torch.ops.fused_resize_argmax import fused_resize_argmax
 
     h, w = frames.shape[1], frames.shape[2]
-    grid = _grid_logits_folded_nchw(folded, frames)
-    grid = grid.index_select(1, _class_index(class_indices, grid.device))
+    grid = _grid_logits_folded_nchw(folded, frames, compute_dtype,
+                                    fused_blocks)
+    grid = grid.float().index_select(
+        1, _class_index(class_indices, grid.device))
     return fused_resize_argmax(grid.contiguous(), (h, w))
 
 
@@ -171,7 +234,8 @@ def _scores(reduced_logits, labels, class_indices, num_classes):
     return preds, red_labels, weights, filtered_onehot, logp
 
 
-def make_predict_fn_folded(num_classes, class_indices):
+def make_predict_fn_folded(num_classes, class_indices,
+                           compute_dtype=torch.float32):
     """Folded-client inference with metrics: predict(folded, frames,
     labels) -> (preds (B,H,W), confusion matrix (C,C), loss)."""
     from ams_tpu_torch.utils.metrics import confusion_matrix
@@ -181,8 +245,9 @@ def make_predict_fn_folded(num_classes, class_indices):
 
     @torch.no_grad()
     def predict(folded, frames, labels):
-        reduced_logits = student_forward_folded(folded, frames,
-                                                class_indices=class_indices)
+        reduced_logits = student_forward_folded(
+            folded, frames, class_indices=class_indices,
+            compute_dtype=compute_dtype)
         preds, red_labels, weights, filtered_onehot, logp = _scores(
             reduced_logits, labels, class_indices, num_classes)
         cm = confusion_matrix(red_labels, preds, n_sel, weights)
@@ -194,7 +259,8 @@ def make_predict_fn_folded(num_classes, class_indices):
     return predict
 
 
-def make_predict_seq_fn_folded(num_classes, class_indices):
+def make_predict_seq_fn_folded(num_classes, class_indices,
+                               compute_dtype=torch.float32):
     """Per-frame metrics over a frame batch: predict_seq(folded, frames,
     labels) -> (preds (B,H,W), confusion matrices (B,C,C), losses (B,))."""
     from ams_tpu_torch.utils.metrics import confusion_matrix_per_frame
@@ -204,8 +270,9 @@ def make_predict_seq_fn_folded(num_classes, class_indices):
 
     @torch.no_grad()
     def predict_seq(folded, frames, labels):
-        reduced_logits = student_forward_folded(folded, frames,
-                                                class_indices=class_indices)
+        reduced_logits = student_forward_folded(
+            folded, frames, class_indices=class_indices,
+            compute_dtype=compute_dtype)
         preds, red_labels, weights, filtered_onehot, logp = _scores(
             reduced_logits, labels, class_indices, num_classes)
         cm_f = confusion_matrix_per_frame(red_labels, preds, n_sel, weights)

@@ -8,7 +8,17 @@ PyTorch's OIHW at call time.
 
 TF ``"SAME"`` padding is asymmetric for stride 2 (the extra row and column
 go bottom and right), which ``F.conv2d(padding="same")`` does not offer at
-stride 2, so the padding is explicit: ``lo = total // 2``, ``hi = total - lo``.
+stride 2, so the padding is explicit: ``lo = total // 2``, ``hi = total - lo``
+(in bfloat16 a symmetric padding goes to the convolution itself, saving a
+copy of the padded tensor; float32 keeps the explicit pad, and so its sums).
+
+``compute_dtype`` (None keeps the input's type) casts activation and weight
+before a convolution, as the JAX package does.  In bfloat16 the activation
+is also put in ``torch.channels_last`` memory, the NHWC storage that both
+cuDNN's bf16 convolutions and the port's fused MBConv kernel read, so the
+unfused and fused blocks chain without a permute copy; cuDNN (and oneDNN on
+the CPU) accumulate in f32 and return bf16.  Float32 stays in the default
+layout, with TF32 off (``utils.platform``).
 """
 
 from __future__ import annotations
@@ -28,34 +38,62 @@ def _same_pad(size: int, k: int, stride: int, rate: int):
 
 
 def _pad_same(x, kh, kw, stride, rate):
+    """-> (x, padding): in bf16 a symmetric TF-'SAME' padding is returned
+    for the convolution to apply; any other is applied here."""
     top, bottom = _same_pad(x.shape[2], kh, stride, rate)
     left, right = _same_pad(x.shape[3], kw, stride, rate)
+    if x.dtype == torch.bfloat16 and top == bottom and left == right:
+        return x, (top, left)
     if top or bottom or left or right:
         x = F.pad(x, (left, right, top, bottom))
-    return x
+    return x, 0
 
 
-def conv2d(x, w, stride=1, rate=1):
+def as_dtype(compute_dtype):
+    """None, a torch dtype, or its name ("bfloat16", "float32") -> a torch
+    dtype or None."""
+    if compute_dtype is None or isinstance(compute_dtype, torch.dtype):
+        return compute_dtype
+    name = str(compute_dtype).replace("torch.", "")
+    if name not in ("bfloat16", "float32"):
+        raise ValueError("compute_dtype must be bfloat16 or float32, got %r"
+                         % (compute_dtype,))
+    return getattr(torch, name)
+
+
+def _cast(x, w, compute_dtype):
+    cd = as_dtype(compute_dtype)
+    if cd is None:
+        return x, w
+    if cd == torch.bfloat16:
+        return (x.to(cd, memory_format=torch.channels_last), w.to(cd))
+    return x.to(cd), w.to(cd)
+
+
+def conv2d(x, w, stride=1, rate=1, *, compute_dtype=None):
     """2-D convolution, NCHW x HWIO -> NCHW, TF 'SAME' semantics; ``rate``
     is the atrous rate (dilation)."""
-    kh, kw = w.shape[0], w.shape[1]
-    x = _pad_same(x, kh, kw, stride, rate)
-    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, dilation=rate)
+    x, w = _cast(x, w, compute_dtype)
+    x, pad = _pad_same(x, w.shape[0], w.shape[1], stride, rate)
+    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, padding=pad,
+                    dilation=rate)
 
 
-def depthwise_conv2d(x, w, stride=1, rate=1):
+def depthwise_conv2d(x, w, stride=1, rate=1, *, compute_dtype=None):
     """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1)."""
-    kh, kw, c = w.shape[0], w.shape[1], w.shape[2]
-    x = _pad_same(x, kh, kw, stride, rate)
-    return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, dilation=rate,
-                    groups=c)
+    x, w = _cast(x, w, compute_dtype)
+    x, pad = _pad_same(x, w.shape[0], w.shape[1], stride, rate)
+    return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
+                    dilation=rate, groups=w.shape[2])
 
 
 def batch_norm_infer(x, gamma, beta, mean, var, eps=BN_EPS):
-    """Inference batch norm using moving statistics, on (B, C, H, W)."""
+    """Inference batch norm using moving statistics, on (B, C, H, W).
+    Scale and offset are computed in the statistics' type and cast to the
+    activation's, as in the JAX package: a bf16 activation stays bf16."""
     inv = torch.rsqrt(var + eps)
-    scale = gamma * inv
-    offset = beta - mean * gamma * inv
+    scale = (gamma * inv).to(x.dtype)
+    offset = (beta - mean * gamma * inv).to(x.dtype)
     return x * scale[:, None, None] + offset[:, None, None]
 
 

@@ -16,6 +16,15 @@ the deployed client does.  ``train=True`` normalizes with the batch
 statistics, as the reference's training graph does, and records in
 ``stats_out`` (a dict, if given) the batch moments that the moving-average
 update consumes.
+
+``compute_dtype`` (default float32, TF32 off) follows the JAX package's
+dtype flow for inference: convolutions cast activation and weight to it,
+inference BN stays in the activation's type, the image pooling's mean is
+taken in f32, and the logits go to f32 before the resize.  Only
+``student_grid_logits`` preprocesses in the compute type, as JAX's does.
+Training (``train=True``) runs in float32 only: the bf16 server round is
+ROADMAP A7.  The JAX package defaults these functions' ``compute_dtype``
+to bfloat16 where the port keeps float32 (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -118,18 +127,26 @@ def trainable_names(params) -> list:
     return [k for k in params if "moving_" not in k]
 
 
-def preprocess(frames: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, 3) frames in [0, 255] -> (B, 3, H+1, W+1) f32 in [-1, 1]:
-    pad +1 bottom row and right column with 127.5, then ``x*2/255-1``."""
-    x = frames.float().permute(0, 3, 1, 2)
+def preprocess(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) frames in [0, 255] -> (B, 3, H+1, W+1) in [-1, 1] of
+    ``dtype``: pad +1 bottom row and right column with 127.5, then
+    ``x*2/255-1``, each operation rounded to ``dtype`` as in JAX."""
+    x = frames.to(dtype).permute(0, 3, 1, 2)
     x = torch.nn.functional.pad(x, (0, 1, 0, 1), value=127.5)
-    return x * _two_over_255(x.device) - 1.0
+    return x * _two_over_255(x.device, dtype) - 1.0
 
 
 @functools.lru_cache(maxsize=None)
-def _two_over_255(device: torch.device) -> torch.Tensor:
+def _two_over_255(device: torch.device, dtype=torch.float32) -> torch.Tensor:
     with torch.inference_mode(False):
-        return torch.tensor(2.0 / 255.0, dtype=torch.float32, device=device)
+        return torch.tensor(2.0 / 255.0, dtype=dtype, device=device)
+
+
+def _check_train_dtype(train: bool, compute_dtype) -> None:
+    if train and layers.as_dtype(compute_dtype) not in (None, torch.float32):
+        raise NotImplementedError(
+            "train=True computes in float32; the bf16 server round is "
+            "ROADMAP A7")
 
 
 def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
@@ -154,24 +171,29 @@ def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
 
 
 def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
-             stats_out=None) -> torch.Tensor:
+             stats_out=None, compute_dtype=torch.float32) -> torch.Tensor:
     """MobileNetV2 trunk on preprocessed (B, 3, H, W) input; returns
     (B, 320, ceil(H/16), ceil(W/16))."""
+    _check_train_dtype(train, compute_dtype)
+    cd = compute_dtype
     bn = dict(train=train, stats_out=stats_out)
-    x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2)
+    x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2,
+                      compute_dtype=cd)
     x = layers.relu6(_bn(params, "MobilenetV2/Conv", x, **bn))
     cin = STEM_CHANNELS
     for i, (exp, cout, stride, rate) in enumerate(_BLOCKS):
         name = block_name(i)
         inp = x
         if exp:
-            x = layers.conv2d(x, params[name + "/expand/weights"])
+            x = layers.conv2d(x, params[name + "/expand/weights"],
+                              compute_dtype=cd)
             x = layers.relu6(_bn(params, name + "/expand", x, **bn))
         x = layers.depthwise_conv2d(
             x, params[name + "/depthwise/depthwise_weights"],
-            stride=stride, rate=rate)
+            stride=stride, rate=rate, compute_dtype=cd)
         x = layers.relu6(_bn(params, name + "/depthwise", x, **bn))
-        x = layers.conv2d(x, params[name + "/project/weights"])
+        x = layers.conv2d(x, params[name + "/project/weights"],
+                          compute_dtype=cd)
         x = _bn(params, name + "/project", x, **bn)
         if stride == 1 and cin == cout:
             x = x + inp
@@ -181,50 +203,62 @@ def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
 
 def deeplab_head(params: Params, feat: torch.Tensor,
                  out_hw: Optional[Tuple[int, int]], *, train: bool = False,
-                 stats_out=None) -> torch.Tensor:
+                 stats_out=None, compute_dtype=torch.float32) -> torch.Tensor:
     """ASPP (1x1 + image pooling) -> projection -> per-class logits, all
-    (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits)."""
+    (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits,
+    in the compute type)."""
+    _check_train_dtype(train, compute_dtype)
+    cd = compute_dtype
     bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out)
     b, _, fh, fw = feat.shape
     pooled = feat.float().mean(dim=(2, 3), keepdim=True)
-    pooled = layers.conv2d(pooled, params["image_pooling/weights"])
+    pooled = layers.conv2d(pooled, params["image_pooling/weights"],
+                           compute_dtype=cd)
     pooled = torch.relu(_bn(params, "image_pooling", pooled, **bn))
     pooled = pooled.expand(b, pooled.shape[1], fh, fw)
 
-    aspp = layers.conv2d(feat, params["aspp0/weights"])
+    aspp = layers.conv2d(feat, params["aspp0/weights"], compute_dtype=cd)
     aspp = torch.relu(_bn(params, "aspp0", aspp, **bn))
 
-    x = torch.cat([pooled, aspp], dim=1)
-    x = layers.conv2d(x, params["concat_projection/weights"])
+    x = torch.cat([pooled.to(aspp.dtype), aspp], dim=1)
+    x = layers.conv2d(x, params["concat_projection/weights"],
+                      compute_dtype=cd)
     x = torch.relu(_bn(params, "concat_projection", x, **bn))
 
-    x = layers.conv2d(x, params["logits/semantic/weights"])
-    x = x + params["logits/semantic/biases"][:, None, None]
+    x = layers.conv2d(x, params["logits/semantic/weights"], compute_dtype=cd)
+    x = x + params["logits/semantic/biases"].to(x.dtype)[:, None, None]
     if out_hw is None:
         return x
-    return resize_nchw(x, out_hw)
+    return resize_nchw(x.float(), out_hw)
 
 
 def grid_logits_nchw(params: Params, frames: torch.Tensor, *,
-                     train: bool = False, stats_out=None) -> torch.Tensor:
-    """(B, H, W, 3) frames -> (B, num_classes, gh, gw) grid logits."""
-    bn = dict(train=train, stats_out=stats_out)
-    return deeplab_head(params, backbone(params, preprocess(frames), **bn),
-                        None, **bn)
+                     train: bool = False, stats_out=None,
+                     compute_dtype=torch.float32) -> torch.Tensor:
+    """(B, H, W, 3) frames -> (B, num_classes, gh, gw) grid logits in the
+    compute type; the preprocessing too runs in it when not training."""
+    cd = layers.as_dtype(compute_dtype)
+    bn = dict(train=train, stats_out=stats_out, compute_dtype=cd)
+    x = preprocess(frames, torch.float32 if train else cd)
+    return deeplab_head(params, backbone(params, x, **bn), None, **bn)
 
 
 def student_grid_logits(params: Params, frames: torch.Tensor, *,
-                        train: bool = False, stats_out=None) -> torch.Tensor:
+                        train: bool = False, stats_out=None,
+                        compute_dtype=torch.float32) -> torch.Tensor:
     """Forward stopping at the feature-grid logits: (B, gh, gw, C)."""
-    return grid_logits_nchw(params, frames, train=train,
-                            stats_out=stats_out).permute(0, 2, 3, 1)
+    return grid_logits_nchw(params, frames, train=train, stats_out=stats_out,
+                            compute_dtype=compute_dtype).permute(0, 2, 3, 1)
 
 
 def student_logits(params: Params, frames: torch.Tensor, *,
-                   train: bool = False, stats_out=None) -> torch.Tensor:
-    """Raw frames -> per-pixel class logits (B, H, W, num_classes) f32."""
+                   train: bool = False, stats_out=None,
+                   compute_dtype=torch.float32) -> torch.Tensor:
+    """Raw frames -> per-pixel class logits (B, H, W, num_classes) f32;
+    the preprocessing runs in f32 whatever the compute type."""
     h, w = frames.shape[1], frames.shape[2]
-    bn = dict(train=train, stats_out=stats_out)
+    bn = dict(train=train, stats_out=stats_out,
+              compute_dtype=layers.as_dtype(compute_dtype))
     feat = backbone(params, preprocess(frames), **bn)
     return deeplab_head(params, feat, (h, w), **bn).permute(0, 2, 3, 1)
 
@@ -245,24 +279,28 @@ def _class_index_cached(class_indices, device) -> torch.Tensor:
 
 
 def student_predict_fast(params: Params, frames: torch.Tensor,
-                         class_indices) -> torch.Tensor:
+                         class_indices, *,
+                         compute_dtype=torch.float32) -> torch.Tensor:
     """Client inference: grid logits, gathered to the class subset, then
     the fused upsample+argmax kernel; never materialises the
     full-resolution logits.  Returns (B, H, W) int32 reduced ids."""
     from ams_tpu_torch.ops.fused_resize_argmax import fused_resize_argmax
 
     h, w = frames.shape[1], frames.shape[2]
-    grid = grid_logits_nchw(params, frames)
-    grid = grid.index_select(1, _class_index(class_indices, grid.device))
+    grid = grid_logits_nchw(params, frames, compute_dtype=compute_dtype)
+    grid = grid.float().index_select(
+        1, _class_index(class_indices, grid.device))
     return fused_resize_argmax(grid.contiguous(), (h, w))
 
 
 def student_forward(params: Params, frames: torch.Tensor, class_indices, *,
-                    train: bool = False, stats_out=None
+                    train: bool = False, stats_out=None,
+                    compute_dtype=torch.float32
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Logits gathered to the experiment's class subset (B, H, W, n_sel)
     and their argmax (B, H, W) int32, ids in the REDUCED space."""
-    logits = student_logits(params, frames, train=train, stats_out=stats_out)
+    logits = student_logits(params, frames, train=train, stats_out=stats_out,
+                            compute_dtype=compute_dtype)
     reduced = logits.index_select(3, _class_index(class_indices,
                                                   logits.device))
     preds = torch.argmax(reduced, dim=-1).to(torch.int32)

@@ -17,6 +17,12 @@ arguments and public methods:
   ``calc_cross_miou(_seq)``.  Its predictions run training-mode batch norm,
   as the reference's server graph does.
 
+``compute_dtype="bfloat16"`` runs a frozen client (folded or not) in bf16
+storage with f32 accumulation, as the JAX facade does; the server stays
+float32 (its bf16 round is ROADMAP A7).  As in JAX, the facade has no
+``fused_blocks`` knob: the fused MBConv variants are reached through
+``models.frozen.student_predict_fast_folded``.
+
 Parameters live on the device as a flat dict of TF-named, TF-shaped
 tensors.  ``fused_loss=True`` runs the round's loss through the fused
 upsample+CE kernel (``ops.fused_resize_ce``); the JAX facade accepts the
@@ -25,6 +31,7 @@ keyword and ignores it.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 
@@ -50,6 +57,7 @@ from ams_tpu_torch.models.frozen import (
     make_predict_seq_fn_folded,
     student_predict_fast_folded,
 )
+from ams_tpu_torch.models.layers import as_dtype
 from ams_tpu_torch.models.mobilenetv2_deeplab import (
     init_student_params,
     student_predict_fast,
@@ -67,8 +75,10 @@ from ams_tpu_torch.utils.platform import resolve_device
 
 
 def _load_checkpoint(path: str) -> dict:
-    """.npy dict or .npz snapshot, with or without its extension."""
-    for cand in (path, path + ".npz", path + ".npy"):
+    """.npy dict or .npz snapshot, with or without its extension, in the
+    JAX package's ``load_any`` order: the path itself, then ``.npy``, then
+    ``.npz`` (both read through the restore filter, suffixes stripped)."""
+    for cand in (path, path + ".npy", path + ".npz"):
         if cand.endswith((".npz", ".npy")) and os.path.exists(cand):
             return ckpt.load_params(cand)
     if os.path.exists(path + ".index") or os.path.isdir(path):
@@ -99,10 +109,11 @@ class SemanticNetwork:
         if not frozen and None in (scale, mini_batch_size, lr):
             raise ValueError("Training parameters must be specified for "
                              "non-frozen graph")
-        if str(compute_dtype) != "float32":
+        cd = as_dtype(compute_dtype)
+        if cd != torch.float32 and not frozen:
             raise NotImplementedError(
-                "compute_dtype %r: the port computes in float32; the bf16 "
-                "path is a later slice" % (compute_dtype,))
+                "compute_dtype %r: the port's server computes in float32; "
+                "the bf16 server round is ROADMAP A7" % (compute_dtype,))
         if over_ride_total_classes is not None:
             self.TOTAL_CLASSES = over_ride_total_classes
 
@@ -165,18 +176,23 @@ class SemanticNetwork:
         ci = tuple(int(c) for c in self.class_indices_graph)
         self._class_indices = ci
         if self._folded:
-            self._predict = make_predict_fn_folded(self.TOTAL_CLASSES, ci)
+            self._predict = make_predict_fn_folded(self.TOTAL_CLASSES, ci,
+                                                   compute_dtype=cd)
             self._predict_seq = make_predict_seq_fn_folded(
-                self.TOTAL_CLASSES, ci)
-            self._fast = student_predict_fast_folded
+                self.TOTAL_CLASSES, ci, compute_dtype=cd)
+            self._fast = functools.partial(student_predict_fast_folded,
+                                           compute_dtype=cd)
         else:
             # a server (non-frozen) network predicts with training-mode
             # batch norm, as the reference's imported graph does
             self._predict = make_predict_fn(self.TOTAL_CLASSES, ci,
-                                            train_bn=not frozen)
-            self._predict_seq = make_predict_seq_fn(self.TOTAL_CLASSES, ci,
-                                                    train_bn=not frozen)
-            self._fast = student_predict_fast
+                                            train_bn=not frozen,
+                                            compute_dtype=cd)
+            self._predict_seq = make_predict_seq_fn(
+                self.TOTAL_CLASSES, ci, train_bn=not frozen,
+                compute_dtype=cd)
+            self._fast = functools.partial(student_predict_fast,
+                                           compute_dtype=cd)
 
         if not frozen:
             self._gen = torch.Generator(device=self.device)
@@ -491,10 +507,10 @@ class SemanticNetwork:
         np.savez(save_dir + ".npz", **host)
 
     def close_model(self):
-        """Drop the device parameters and the cached rounds; the object
-        cannot predict or train after."""
-        self.params = {}
-        self._initial_params = {}
+        """Nothing to close (there is no TF graph): drop the cached rounds,
+        as the JAX package drops its jit caches.  The weights stay; a
+        closed network still predicts, and ``get_vars`` still returns
+        them."""
         self._round_cache.clear()
 
     # ------------------------------------------------------- visualization

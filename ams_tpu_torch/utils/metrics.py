@@ -36,6 +36,14 @@ def _weighted_counts(labels, predictions, num_classes, weights, n_groups):
         w = torch.as_tensor(weights, dtype=torch.float32,
                             device=labels.device).reshape(n_groups, -1)
     _check_exact(labels.shape[1])
+    # an id outside [0, C) adds nothing, as the JAX package's one-hot rows
+    # are all zero for it: weight 0, and a cell of its own group
+    valid = (labels >= 0) & (labels < num_classes) & \
+        (predictions >= 0) & (predictions < num_classes)
+    w = torch.where(valid, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    labels = torch.where(valid, labels, torch.zeros_like(labels))
+    predictions = torch.where(valid, predictions,
+                              torch.zeros_like(predictions))
     group = torch.arange(n_groups, device=labels.device)[:, None]
     cell = (group * num_classes + labels) * num_classes + predictions
     counts = torch.bincount(cell.reshape(-1), weights=w.reshape(-1),
@@ -45,8 +53,9 @@ def _weighted_counts(labels, predictions, num_classes, weights, n_groups):
 
 def confusion_matrix(labels, predictions, num_classes, weights=None):
     """Weighted confusion matrix, rows = labels, cols = predictions: each
-    pixel adds ``weight`` (default 1) to cell ``[label, prediction]``.
-    Returns a (num_classes, num_classes) float32 tensor."""
+    pixel adds ``weight`` (default 1) to cell ``[label, prediction]``; a
+    pixel whose label or prediction lies outside [0, num_classes) adds
+    nothing.  Returns a (num_classes, num_classes) float32 tensor."""
     return _weighted_counts(labels, predictions, num_classes, weights, 1)[0]
 
 

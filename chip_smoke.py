@@ -15,10 +15,9 @@ the card:
 1. builds the kernels from ams_tpu_torch/csrc with nvcc (all in parallel);
 2. holds each kernel against its plain PyTorch version at the paths'
    shapes and times kernel, plain version and the nearest library call
-   (resize+argmax; resize+CE forward and backward); times the library
-   form of the folded client's MBConv blocks, the work of the TPU kernels
-   still to port;
-3. the client path, with every launch counter set to 0 just before it:
+   (resize+argmax; resize+CE forward and backward; the fused MBConv block
+   through K3's and K4's wrappers, against the unfused bf16 block);
+3. the f32 client path, with every launch counter set to 0 just before it:
    predict_input on full-class and class-subset clients, delta apply on the
    float16 and int8d wires, predict again, BN-folded export, reload,
    predict_input and per-frame scoring on the folded client; plus a small
@@ -30,7 +29,12 @@ the card:
    plus one iteration of the fused loss against the gather loss, the
    device time per iteration of both, a small round held against the
    port's own CPU round, and a profile of one iteration;
-5. one JSON line of kernel numbers, the wall-clock, and as the last line
+5. the bf16 folded client path, with every launch counter set to 0 just
+   before it: the facade in bf16 (predict, a float16 delta, fold, reload,
+   predict and score), then the folded fast path with unfused, fused (K3)
+   and banded (K4) blocks, held against the unfused bf16 ids and the f32
+   client's, with each variant's launches per forward and frames/s;
+6. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -52,9 +56,11 @@ import time
 BUDGET_S = 1100          # the watchdog: well inside the 1200 s limit
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside tensor cores
+BF16_MMA_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 TIE_MARGIN = 1e-5        # top-2 margin below which ids may differ
 SEED = 0
 B, H, W = 8, 512, 1024   # the client's batch and frame size
+ODD_HW = (511, 1023)     # frames whose stem grid (256x512) is even
 SUBSET_EXP = 25          # Cityscapes-Frankfurt: 6 of the 19 classes
 # the server's distillation round: run.py's defaults
 SH, SW = 256, 512        # server frames (run.py --height 256)
@@ -63,6 +69,36 @@ MINI_BATCH = 10          # run.py --batch_size
 ROUND_ITERS = 200        # run.py --iter
 LR = 1e-3                # run.py --lr
 COORD_FRAC = 0.1         # run.py --coord_fraction
+
+
+def reset_counters():
+    """Every kernel wrapper's launch count to 0."""
+    from ams_tpu_torch.ops import fused_mbconv as fm
+    from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+    from ams_tpu_torch.ops import fused_resize_ce as frc
+
+    fra.fused_resize_argmax.launches = 0
+    frc.resize_ce_fwd.launches = frc.resize_ce_bwd.launches = 0
+    fm.mbconv_block.launches = fb.mbconv_banded.launches = 0
+
+
+def expected_mbconv_launches(h, w, banded_min_hw=96 * 96):
+    """(K3, K4) launches of one folded forward of (h, w) frames, from the
+    routing rules: fused_blocks=True fuses every stride-1 block;
+    "banded" fuses each block whose input area reaches banded_min_hw and
+    whose geometry banded_supported accepts."""
+    from ams_tpu_torch.models.mobilenetv2_deeplab import _BLOCKS
+    from ams_tpu_torch.ops.fused_mbconv_banded import banded_supported
+
+    gh, gw = -(-(h + 1) // 2), -(-(w + 1) // 2)      # +1 pad, stem stride 2
+    k3 = k4 = 0
+    for _, _, stride, rate in _BLOCKS:
+        k3 += stride == 1
+        k4 += (gh * gw >= banded_min_hw
+               and banded_supported(gh, gw, stride, rate))
+        gh, gw = -(-gh // stride), -(-gw // stride)
+    return k3, k4
 
 
 def log(msg=""):
@@ -301,7 +337,7 @@ def phase_main_path(dev):
     sub = SemanticNetwork(host, configs.class_weights(SUBSET_EXP), **kw)
     tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_")
     try:
-        fra.fused_resize_argmax.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         ids_full = full.predict_input(frames)
         ids_sub = sub.predict_input(frames)
@@ -406,7 +442,7 @@ def phase_main_path(dev):
         shutil.rmtree(tmp, ignore_errors=True)
     log("  kernel launches on the main path: resize_argmax %d" % launches)
     check(launches > 0, "resize_argmax was not launched on the main path")
-    return {"resize_argmax": launches}, host_fps, B * 1e3 / dev_ms
+    return {"resize_argmax": launches}, host_fps, B * 1e3 / dev_ms, host
 
 
 def resize_ce_bound_ms(b, c, gh, gw, h, w, backward=False):
@@ -527,53 +563,156 @@ def phase_resize_ce_checks(dev):
     return out
 
 
-def mbconv_library_times(dev):
-    """The folded client's MBConv blocks in cuDNN f32 (TF32 off) at the
-    client's shapes: the work that the TPU kernels K3 (stride-1 blocks) and
-    K4 (stride-1 and stride-2 blocks) do, which the port still runs
-    unfused.  Bounds from shapes, f32 as the port computes: input, output
-    and weights once over 3.35 TB/s, or the convolutions' multiply-adds
-    plus bias and relu6 over 67 TFLOP/s."""
+def mbconv_bound_ms(b, cin, cmid, cout, h, w, ho, wo, has_expand,
+                    residual):
+    """Least time for one fused MBConv block in bf16 on an H100 SXM: the
+    input and output (bf16) and the weights (bf16 1x1, f32 depthwise and
+    biases) each moved once over 3.35 TB/s; or the two 1x1 products over
+    989 TFLOP/s (bf16 tensor cores) plus the depthwise taps and the
+    elementwise work (bias and relu6 on the mid tensor twice, bias and
+    residual on the output) over 67 TFLOP/s f32.  The larger one
+    bounds."""
+    nbytes = 2 * (b * cin * h * w + b * cout * ho * wo) \
+        + 2 * (cin * cmid * has_expand + cmid * cout) \
+        + 4 * (9 * cmid + cmid * (1 + has_expand) + cout)
+    mma = 2 * b * h * w * cin * cmid * has_expand \
+        + 2 * b * ho * wo * cmid * cout
+    other = 3 * b * h * w * cmid * has_expand + 2 * 9 * b * ho * wo * cmid \
+        + 3 * b * ho * wo * cmid + b * ho * wo * cout * (1 + residual)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = mma / BF16_MMA_OPS_PER_S + other / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_mbconv_checks(dev):
+    """Phase 2, K3/K4: the fused MBConv kernel against ``mbconv_plain`` in
+    bf16 at the client's block shapes, through K3's wrapper (stride 1)
+    and K4's (stride 2), with the kernel's, the plain version's and the
+    library's times: the port's own unfused block (cuDNN bf16,
+    channels-last), and beside it the same block in f32 (TF32 off).
+    Tolerance: |kernel - plain| <= 2^-6 |plain| + 2^-8 max|plain|, two
+    bf16 ulps (the two differ only in the order of the 1x1 sums, which
+    moves a bf16 rounding by one ulp now and then)."""
     import torch
     from ams_tpu_torch.models import layers
+    from ams_tpu_torch.ops import fused_mbconv as fm
+    from ams_tpu_torch.ops import fused_mbconv_banded as fb
 
+    bf16 = torch.bfloat16
+    lib = fm._library()
+    # every block of the student: the C and Python shared-memory sums
+    # agree, and a tile fits
+    for cin, cmid, cout, s, r, he in (
+            (32, 32, 16, 1, 1, 0), (16, 96, 24, 2, 1, 1),
+            (24, 144, 24, 1, 1, 1), (24, 144, 32, 2, 1, 1),
+            (32, 192, 32, 1, 1, 1), (32, 192, 64, 2, 1, 1),
+            (64, 384, 64, 1, 1, 1), (64, 384, 96, 1, 1, 1),
+            (96, 576, 96, 1, 1, 1), (96, 576, 160, 1, 1, 1),
+            (160, 960, 160, 1, 2, 1), (160, 960, 320, 1, 2, 1)):
+        plan = fm.stage_tile(cin, cmid, cout, s, r, bool(he))
+        c_bytes = lib.mbconv_smem_bytes(cin, cout, s, r, he, *plan)
+        check(c_bytes == fm.smem_bytes(cin, cout, s, r, bool(he), *plan)
+              <= fm.SMEM_LIMIT, "shared memory plan %s: C %d bytes vs "
+              "Python %d" % (plan, c_bytes, fm.smem_bytes(
+                  cin, cout, s, r, bool(he), *plan)))
+    log("  shared-memory plans of the 12 block shapes agree between "
+        "csrc/mbconv.cu and ops/fused_mbconv.py, all under %d bytes"
+        % fm.SMEM_LIMIT)
+
+    # (label, wrapper, b, cin, cmid, cout, h, w, stride, rate)
+    cases = [
+        ("expanded_conv_2 (stride 1, residual)", "K3",
+         B, 24, 144, 24, 129, 257, 1, 1),
+        ("expanded_conv_16 (rate 2, 160->960->320)", "K3",
+         B, 160, 960, 320, 33, 65, 1, 2),
+        ("expanded_conv_14 (rate 2, residual)", "K3",
+         B, 160, 960, 160, 33, 65, 1, 2),
+        ("expanded_conv (no expand)", "K3",
+         B, 32, 32, 16, 257, 513, 1, 1),
+        ("stride 2 at a banded shape", "K4",
+         B, 16, 96, 24, 256, 512, 2, 1),
+        ("expanded_conv_1 (stride 2, odd 257x513)", "K4",
+         B, 16, 96, 24, 257, 513, 2, 1),
+    ]
     gen = torch.Generator().manual_seed(SEED + 9)
     rows = []
-    # (block, stride, cin, cout, input h, w): expanded_conv_2 and _1 of the
-    # student at 512x1024 frames (+1 pad, stem stride 2)
-    for name, stride, cin, cout, h, w in (
-            ("expanded_conv_2 (stride 1, residual)", 1, 24, 24, 129, 257),
-            ("expanded_conv_1 (stride 2)", 2, 16, 24, 257, 513)):
-        mid = 6 * cin
-        x = torch.randn(B, cin, h, w, generator=gen).to(dev)
-        we = (torch.randn(1, 1, cin, mid, generator=gen) * 0.2).to(dev)
-        wd = (torch.randn(3, 3, mid, 1, generator=gen) * 0.3).to(dev)
-        wp = (torch.randn(1, 1, mid, cout, generator=gen) * 0.1).to(dev)
-        be, bd, bp = (torch.randn(n, generator=gen).to(dev)
-                      for n in (mid, mid, cout))
+    for label, which, b, cin, cmid, cout, h, w, s, r in cases:
+        he = cin != cmid
+        residual = s == 1 and cin == cout
+        x = torch.randn(b, cin, h, w, generator=gen).to(dev, bf16) \
+            .contiguous(memory_format=torch.channels_last)
+        we = (torch.randn(cin, cmid, generator=gen) / cin ** 0.5) \
+            .to(dev, bf16) if he else None
+        be = (torch.randn(cmid, generator=gen) * 0.1).to(dev) if he else None
+        wd = (torch.randn(9, cmid, generator=gen) / 3).to(dev)
+        bd = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
+        wp = (torch.randn(cmid, cout, generator=gen) / cmid ** 0.5).to(
+            dev, bf16)
+        bp = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        ws = (we, be, wd, bd, wp, bp)
+        if which == "K3":
+            def kernel():
+                return fm.mbconv_block(x, *ws, rate=r, residual=residual)
+        else:
+            def kernel():
+                return fb.mbconv_banded(x, *ws, stride=s, residual=residual)
 
-        def block():
-            y = layers.relu6(layers.conv2d(x, we) + be[:, None, None])
-            y = layers.relu6(layers.depthwise_conv2d(y, wd, stride=stride)
-                             + bd[:, None, None])
-            y = layers.conv2d(y, wp) + bp[:, None, None]
-            return y + x if stride == 1 and cin == cout else y
+        def plain():
+            return fm.mbconv_plain(x, *ws, stride=s, rate=r,
+                                   residual=residual)
+
+        hwio = (we.reshape(1, 1, cin, cmid) if he else None,
+                wd.reshape(3, 3, cmid, 1), wp.reshape(1, 1, cmid, cout))
+
+        def library(dtype):
+            xx = x.to(dtype)
+            y = xx
+            if he:
+                y = layers.conv2d(y, hwio[0], compute_dtype=dtype)
+                y = layers.relu6(y + be.to(y.dtype)[:, None, None])
+            y = layers.depthwise_conv2d(y, hwio[1], stride=s, rate=r,
+                                        compute_dtype=dtype)
+            y = layers.relu6(y + bd.to(y.dtype)[:, None, None])
+            y = layers.conv2d(y, hwio[2], compute_dtype=dtype)
+            y = y + bp.to(y.dtype)[:, None, None]
+            return y + xx if residual else y
 
         with torch.no_grad():
-            ms = cuda_ms(block, 20)
-            ho, wo = block().shape[2:]
-        nbytes = 4 * (B * cin * h * w + B * cout * ho * wo
-                      + cin * mid + 9 * mid + mid * cout + 2 * mid + cout)
-        ops = (2 * B * h * w * cin * mid + 3 * B * h * w * mid
-               + 2 * 9 * B * ho * wo * mid + 3 * B * ho * wo * mid
-               + 2 * B * ho * wo * mid * cout + 2 * B * ho * wo * cout)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        row = {"block": name, "input": [B, cin, h, w], "library_ms": ms,
-               "bound_ms": max(t_b, t_o) * 1e3,
-               "bound_by": "bytes" if t_b >= t_o else "operations"}
-        log("  MBConv %s at %s: library (cuDNN f32, unfused) %.4f ms, "
-            "bound %.4f ms (%s)" % (name, row["input"], ms, row["bound_ms"],
-                                    row["bound_by"]))
+            got, want = kernel(), plain()
+            lib_out = library(bf16)
+            torch.cuda.synchronize()
+            d = (got.float() - want.float()).abs()
+            scale = float(want.float().abs().max())
+            ok = bool((d <= 2 ** -6 * want.float().abs()
+                       + 2 ** -8 * scale).all())
+            lib_err = float((lib_out.float() - want.float()).abs().max())
+            k_ms = cuda_ms(kernel, 20)
+            p_ms = cuda_ms(plain, 3)
+            l_ms = cuda_ms(lambda: library(bf16), 10)
+            l32_ms = cuda_ms(lambda: library(torch.float32), 10)
+        ho, wo = got.shape[2], got.shape[3]
+        bound, bound_by = mbconv_bound_ms(b, cin, cmid, cout, h, w, ho, wo,
+                                          int(he), int(residual))
+        row = {"case": label, "wrapper": which,
+               "shape": [b, cin, cmid, cout, h, w, s, r],
+               "plan": list(fm.stage_tile(cin, cmid, cout, s, r, he)),
+               "max_abs_err": float(d.max()), "scale": scale,
+               "differing": int((d > 0).sum()), "elements": d.numel(),
+               "library_bf16_max_abs_err": lib_err,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "library_f32_ms": l32_ms, "bound_ms": bound,
+               "bound_by": bound_by}
+        log("  MBConv %s [%s] %s, plan %s: max abs err %.4g (|out| up to "
+            "%.4g; %d of %d differ), unfused bf16 vs plain %.4g; kernel "
+            "%.4f ms, plain %.4f ms, library bf16 %.4f ms (f32 %.4f ms), "
+            "bound %.4f ms (%s)"
+            % (label, which, row["shape"], row["plan"], row["max_abs_err"],
+               scale, row["differing"], row["elements"], lib_err, k_ms, p_ms,
+               l_ms, l32_ms, bound, bound_by))
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              "mbconv kernel differs from mbconv_plain beyond two bf16 ulps "
+              "in case %s: max abs err %g" % (label, row["max_abs_err"]))
         rows.append(row)
     return rows
 
@@ -664,8 +803,7 @@ def phase_server(dev):
     shapes = {k: v.shape for k, v in initial.items()}
     memory = (collections.deque(frames), collections.deque(labels))
 
-    frc.resize_ce_fwd.launches = frc.resize_ce_bwd.launches = 0
-    fra.fused_resize_argmax.launches = 0
+    reset_counters()
     events, iters_run, prev_mask = [], 0, None
     iters = ROUND_ITERS
     for event, wire in ((1, "float16"), (2, "int8d")):
@@ -861,6 +999,239 @@ def phase_server(dev):
     return launches, events, per_iter
 
 
+def phase_bf16_client(dev, host):
+    """Phase 5: the bf16 folded client at full width, with every launch
+    counter set to 0 just before it: through the facade
+    (SemanticNetwork(frozen=True, compute_dtype="bfloat16"): predict_input,
+    a float16 apply_downlink, predict again, BN-folded export, reload,
+    predict_input and per-frame scoring), then the folded fast path
+    ``student_predict_fast_folded`` with fused_blocks False, True (K3) and
+    "banded" (K4), held against the unfused bf16 ids and the f32 client's,
+    with each variant's frames/s; plus one banded forward at 511x1023,
+    whose even stem grid takes K4's stride-2 blocks too."""
+    import numpy as np
+    import torch
+    from ams_tpu_torch import configs
+    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.models import frozen as tf
+    from ams_tpu_torch.models.mobilenetv2_deeplab import trainable_names
+    from ams_tpu_torch.models.resize import resize_nchw
+    from ams_tpu_torch.ops import fused_mbconv as fm
+    from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+    from ams_tpu_torch.ops import fused_resize_ce as frc
+    from ams_tpu_torch.runtime.network import SemanticNetwork
+    from ams_tpu_torch.stream.codec import apply_delta, decode_delta, \
+        encode_delta
+
+    bf16 = torch.bfloat16
+    frames = synthetic_frames(B, H, W, SEED)
+    staged = torch.from_numpy(frames).to(dev)
+    ci = tuple(range(19))
+    kw = dict(height=H, frozen=True, compute_dtype="bfloat16", device=dev)
+    tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_bf16_")
+    reset_counters()
+    try:
+        client = SemanticNetwork(host, configs.class_weights(0), **kw)
+        ids0 = client.predict_input(frames)
+        check(ids0.shape == (B, H, W) and ids0.dtype == np.int32,
+              "bf16 client ids %s %s" % (ids0.shape, ids0.dtype))
+        rng = np.random.RandomState(SEED + 13)
+        masks = {k: rng.rand(*host[k].shape) < 0.1
+                 for k in trainable_names(host)}
+        moved = {k: (np.where(masks[k], host[k] + rng.randn(*host[k].shape)
+                              .astype(np.float32) * 0.01, host[k])
+                     if k in masks else host[k]) for k in host}
+        blob = encode_delta(moved, masks, strategy="coord_desc_auto",
+                            wire_dtype="float16")
+        shapes = {k: v.shape for k, v in host.items()}
+        dm, dv = decode_delta(blob, shapes, strategy="coord_desc_auto",
+                              wire_dtype="float16")
+        want = apply_delta(host, dm, dv)
+        client.apply_downlink(blob, strategy="coord_desc_auto",
+                              wire_dtype="float16")
+        got = client.get_vars()
+        bad = [k for k in want if not np.array_equal(got[k], want[k])]
+        check(not bad, "bf16 client: apply_downlink differs from the host "
+              "apply_delta in %s" % bad[:3])
+        ids1 = client.predict_input(frames)
+        log("  facade, unfolded bf16 client: predict_input %s; after a "
+            "float16 delta (%d B) %.4f of ids changed"
+            % (ids0.shape, len(blob), float((ids1 != ids0).mean())))
+        path = os.path.join(tmp, "client_bf16")
+        client.save_to_frozen_graph(path, fold=True)
+        folded = SemanticNetwork(path + ".npz", configs.class_weights(0),
+                                 **kw)
+        check(folded._folded, "the reloaded bf16 artifact is not folded")
+        ids_fold = folded.predict_input(frames)
+        agree = float((ids_fold == ids1).mean())
+        f_ids, f_cms, f_mious, f_losses = folded.predict_with_metric_seq(
+            frames, ids1)
+        check(f_cms.shape == (B, 19, 19) and np.isfinite(f_losses).all(),
+              "bf16 folded scoring: %s, losses %s" % (f_cms.shape, f_losses))
+        check(np.array_equal(f_ids, ids_fold),
+              "bf16 folded client: scoring ids differ from predict_input's")
+        log("  facade, folded bf16 client: ids agree with the unfolded "
+            "bf16 client on %.6f of pixels; predict_with_metric_seq mIoU "
+            "vs the unfolded ids %s, losses %s"
+            % (agree, np.round(f_mious, 4).tolist(),
+               np.round(f_losses, 4).tolist()))
+        check(agree > 0.99, "folded bf16 client agrees on only %.4f" % agree)
+        fp = folded.params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    variants = (("unfused", False), ("fused K3", True),
+                ("banded K4", "banded"))
+    grids, per_forward = {}, {}
+    with torch.inference_mode():
+        g32 = tf._grid_logits_folded_nchw(fp, staged, torch.float32)
+        for name, fused in variants:
+            before = (fm.mbconv_block.launches, fb.mbconv_banded.launches)
+            grids[name] = tf._grid_logits_folded_nchw(
+                fp, staged, bf16, fused).float()
+            per_forward[name] = (fm.mbconv_block.launches - before[0],
+                                 fb.mbconv_banded.launches - before[1])
+        torch.cuda.synchronize()
+        ids = {n: fra.fused_resize_argmax(g.contiguous(), (H, W))
+               for n, g in grids.items()}
+        ids32 = fra.fused_resize_argmax(g32.contiguous(), (H, W))
+
+        def margin(grid):
+            top2 = torch.topk(resize_nchw(grid, (H, W)), 2, dim=1).values
+            return top2[:, 0] - top2[:, 1]
+
+        m_unf, m32 = margin(grids["unfused"]), margin(g32)
+        rows = {}
+        for name, fused in variants:
+            got = tf.student_predict_fast_folded(fp, staged, ci,
+                                                 compute_dtype=bf16,
+                                                 fused_blocks=fused)
+            rerun = float((got == ids[name]).float().mean())
+            check(rerun > 0.99, "%s: student_predict_fast_folded ids agree "
+                  "with the same forward's grid ids on only %.4f"
+                  % (name, rerun))
+            err = float((grids[name] - grids["unfused"]).abs().max())
+            # interpolation is a convex combination, so no id can change
+            # where the top-2 margin exceeds twice the largest grid change
+            decisive = m_unf > 2 * err + TIE_MARGIN
+            same = ids[name] == ids["unfused"]
+            rows[name] = {"rerun_agree": rerun,
+                          "grid_max_abs_vs_unfused": err,
+                          "agree_vs_unfused": float(same.float().mean()),
+                          "differ_off_near_ties": int((~same & decisive)
+                                                      .sum()),
+                          "k3_per_forward": per_forward[name][0],
+                          "k4_per_forward": per_forward[name][1]}
+        err32 = float((grids["unfused"] - g32).abs().max())
+        decisive32 = m32 > 2 * err32 + TIE_MARGIN
+        same32 = ids["unfused"] == ids32
+        agree32 = float(same32.float().mean())
+        agree32_dec = float(same32[decisive32].float().mean()) \
+            if bool(decisive32.any()) else 1.0
+        log("  bf16 unfused vs f32 folded client: grid max abs diff %.4g "
+            "(|logits| up to %.4g); ids agree on %.6f of pixels, on %.6f of "
+            "the %.4f decisive ones (f32 top-2 margin above twice that)"
+            % (err32, float(g32.abs().max()), agree32, agree32_dec,
+               float(decisive32.float().mean())))
+        check(agree32 > 0.99 or agree32_dec > 0.99,
+              "bf16 ids agree with the f32 client's on %.4f (decisive %.4f)"
+              % (agree32, agree32_dec))
+        for name, _ in variants:
+            r = rows[name]
+            log("  %s: K3 %d and K4 %d launches per forward; grid max abs "
+                "diff to unfused %.4g; ids agree %.6f, %d differ off near "
+                "ties" % (name, r["k3_per_forward"], r["k4_per_forward"],
+                          r["grid_max_abs_vs_unfused"],
+                          r["agree_vs_unfused"], r["differ_off_near_ties"]))
+            check(r["agree_vs_unfused"] > 0.99 and
+                  r["differ_off_near_ties"] == 0,
+                  "%s ids disagree with the unfused bf16 ids" % name)
+        k3_want, k4_want = expected_mbconv_launches(H, W)
+        check(per_forward == {"unfused": (0, 0), "fused K3": (k3_want, 0),
+                              "banded K4": (0, k4_want)}
+              and k3_want > 0 and k4_want > 0,
+              "MBConv launches per forward %s; the routing gives K3 %d, "
+              "K4 %d" % (per_forward, k3_want, k4_want))
+
+    # frames/s: device (CUDA events) and end to end (host uint8 in, host
+    # ids out, host clock), f32 folded beside the three bf16 variants
+    n_rep = 5
+    rates = {}
+    for name, dtype, fused in (("f32", torch.float32, False),
+                               ("bf16 unfused", bf16, False),
+                               ("bf16 fused K3", bf16, True),
+                               ("bf16 banded K4", bf16, "banded")):
+        def forward():
+            return tf.student_predict_fast_folded(
+                fp, staged, ci, compute_dtype=dtype, fused_blocks=fused)
+
+        def end_to_end():
+            t = torch.from_numpy(frames).to(dev)
+            return tf.student_predict_fast_folded(
+                fp, t, ci, compute_dtype=dtype, fused_blocks=fused).cpu()
+
+        with torch.inference_mode():
+            dev_ms = cuda_ms(forward, n_rep)
+            end_to_end()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_rep):
+                end_to_end()
+            host_fps = n_rep * B / (time.perf_counter() - t0)
+        rates[name] = {"device_ms": dev_ms,
+                       "device_frames_per_s": B * 1e3 / dev_ms,
+                       "end_to_end_frames_per_s": host_fps}
+        log("  %s folded client: %.2f ms per batch of %d on the device = "
+            "%.1f frames/s; %.1f frames/s end to end"
+            % (name, dev_ms, B, B * 1e3 / dev_ms, host_fps))
+    for name, fused in (("bf16 unfused", False), ("bf16 fused K3", True)):
+        log("  where the device time of one %s forward goes "
+            "(torch.profiler):" % name)
+        try:
+            with torch.inference_mode():
+                lines = device_breakdown(lambda: tf.student_predict_fast_folded(
+                    fp, staged, ci, compute_dtype=bf16, fused_blocks=fused),
+                    top=10)
+        except (RuntimeError, AssertionError) as e:  # informational only
+            lines = ["profiler unavailable: %s" % e]
+        for line in lines:
+            log("    " + line)
+
+    # 511x1023 frames: the stem grid is 256x512, so the banded routing
+    # takes the stride-2 blocks expanded_conv_1 and _3 as well
+    oh, ow = ODD_HW
+    odd = torch.from_numpy(synthetic_frames(B, oh, ow, SEED + 4)).to(dev)
+    with torch.inference_mode():
+        before = fb.mbconv_banded.launches
+        ids_b = tf.student_predict_fast_folded(fp, odd, ci,
+                                               compute_dtype=bf16,
+                                               fused_blocks="banded")
+        k4_odd = fb.mbconv_banded.launches - before
+        ids_u = tf.student_predict_fast_folded(fp, odd, ci,
+                                               compute_dtype=bf16)
+        torch.cuda.synchronize()
+    agree_odd = float((ids_b == ids_u).float().mean())
+    k4_want = expected_mbconv_launches(oh, ow)[1]
+    log("  banded forward at %dx%dx%d: %d K4 launches (stride 1 and 2; the "
+        "routing gives %d); ids agree with the unfused bf16 forward on %.6f"
+        % (B, oh, ow, k4_odd, k4_want, agree_odd))
+    check(k4_odd == k4_want and agree_odd > 0.99,
+          "%dx%d banded forward: %d K4 launches (want %d), agreement %.4f"
+          % (oh, ow, k4_odd, k4_want, agree_odd))
+
+    launches = {"resize_argmax": fra.fused_resize_argmax.launches,
+                "resize_ce_fwd": frc.resize_ce_fwd.launches,
+                "resize_ce_bwd": frc.resize_ce_bwd.launches,
+                "mbconv": fm.mbconv_block.launches,
+                "mbconv_banded": fb.mbconv_banded.launches}
+    log("  kernel launches on the bf16 client path: %s" % launches)
+    check(launches["mbconv"] > 0 and launches["mbconv_banded"] > 0
+          and launches["resize_argmax"] > 0,
+          "a kernel of the bf16 client path was not launched: %s" % launches)
+    return launches, rows, rates
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -876,6 +1247,8 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ams_tpu_torch.ops import build
+    from ams_tpu_torch.ops import fused_mbconv as fm
+    from ams_tpu_torch.ops import fused_mbconv_banded as fb
     from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.ops import fused_resize_ce as frc
     from ams_tpu_torch.utils.platform import resolve_device
@@ -884,7 +1257,7 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    info = build.build(["resize_argmax", "resize_ce"])
+    info = build.build(["resize_argmax", "resize_ce", "mbconv"])
     log("  built in %.2f s wall" % (time.perf_counter() - t0))
     for name, rec in info.items():
         log("  %s: %.2f s%s -> %s" % (name, rec["seconds"],
@@ -896,15 +1269,19 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     cases = phase_kernel_checks(dev)
     ce_cases = phase_resize_ce_checks(dev)
-    mbconv = mbconv_library_times(dev)
+    mb_cases = phase_mbconv_checks(dev)
 
     log("phase 3: main path (edge client, %dx%dx%d uint8 frames)" % (B, H, W))
-    launches, host_fps, dev_fps = phase_main_path(dev)
+    launches, host_fps, dev_fps, host = phase_main_path(dev)
 
     log("phase 4: server path (%d-frame memory of %dx%d, minibatch %d, %d "
         "iterations of coord_desc_auto, fused resize+CE loss)"
         % (MEMORY, SH, SW, MINI_BATCH, ROUND_ITERS))
     server_launches, events, per_iter = phase_server(dev)
+
+    log("phase 5: bf16 folded client (%dx%dx%d uint8 frames; unfused, fused "
+        "K3 and banded K4 blocks)" % (B, H, W))
+    bf16_launches, bf16_rows, bf16_rates = phase_bf16_client(dev, host)
 
     main_case = cases[0]
     kernels = [{
@@ -937,8 +1314,28 @@ def main() -> int:
             "cases": [{k: v for k, v in c.items()
                        if k in ("case", "shape", key) or k.startswith(part)}
                       for c in ce_cases]})
+    for name, which in (("mbconv", "K3"), ("mbconv_banded", "K4")):
+        mod = fm if which == "K3" else fb
+        mine = [c for c in mb_cases if c["wrapper"] == which]
+        case = mine[0]        # expanded_conv_2; stride 2 at 256x512
+        kernels.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": bf16_launches[name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "library_f32_ms": case["library_f32_ms"],
+            "shape": case["shape"], "per_forward": {
+                n: r["k3_per_forward" if which == "K3" else "k4_per_forward"]
+                for n, r in bf16_rows.items()},
+            "cases": mine})
     log("client throughput: %.1f frames/s end to end, %.1f frames/s on the "
         "device (batch %d, %dx%d)" % (host_fps, dev_fps, B, H, W))
+    for name, r in bf16_rates.items():
+        log("folded client %s: %.1f frames/s end to end, %.1f frames/s on "
+            "the device" % (name, r["end_to_end_frames_per_s"],
+                            r["device_frames_per_s"]))
     for ev in events:
         log("server event %d: %d iterations in %.2f s (%.2f ms per iteration "
             "end to end); %s delta %d B; client mIoU %.4f -> %.4f"
@@ -947,7 +1344,6 @@ def main() -> int:
                ev["client_miou_before"], ev["client_miou_after"]))
     log("server device ms per iteration: fused loss %.3f, gather loss %.3f"
         % (per_iter[True], per_iter[False]))
-    log("MBConv library times (the work of K3/K4): %s" % json.dumps(mbconv))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,107 @@
+"""The bf16 edge client's call sequence on both SemanticNetwork facades.
+
+``SemanticNetwork(frozen=True, compute_dtype="bfloat16")`` in both
+packages, built from the same numpy params: unfolded, predict_input,
+per-frame scoring, apply_downlink of one ams_tpu-encoded payload, predict
+again; then the BN-folded artifact, reloaded, predicts and scores.  The
+params are JAX's seeded init with the logits scaled x300, as
+tests/test_fused_mbconv.py:118-120 does.
+
+Tolerances: parameters after apply_downlink equal bit for bit (host numpy
+codec in both).  bf16 rounds after every operation, and the JAX facade
+runs jitted, where XLA fuses and sums in its own order, so the two
+facades' ids must agree on more than 0.99 of pixels (the bar of
+tests/test_fused_mbconv.py:134; measured 0.99969 at worst); each
+confusion matrix may differ only by the pixels whose ids differ (each
+moves one count out of one cell into another); per-frame CE losses agree
+to rtol 1e-3 (measured 2.0e-5 at worst).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from ams_tpu import configs
+from ams_tpu.models import mobilenetv2_deeplab as jm
+from ams_tpu.runtime.network import SemanticNetwork as JaxNetwork
+from ams_tpu.stream import codec as jcodec
+
+from ams_tpu_torch.runtime.network import SemanticNetwork as TorchNetwork
+
+EXP = 25
+KW = dict(class_weights_exp=configs.class_weights(EXP), height=64,
+          frozen=True, compute_dtype="bfloat16")
+
+
+@pytest.fixture(autouse=True)
+def _torch_threads():
+    torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def case():
+    params = {k: np.asarray(v) for k, v in
+              jm.init_student_params(jax.random.PRNGKey(2)).items()}
+    params["logits/semantic/weights"] = params["logits/semantic/weights"] \
+        * np.float32(300.0)
+    rng = np.random.RandomState(31)
+    frames = rng.randint(0, 256, (2, 64, 128, 3)).astype(np.uint8)
+    labels = rng.randint(0, 19, frames.shape[:3]).astype(np.int32)
+    labels[rng.rand(*labels.shape) < 0.05] = 255
+    train = jm.trainable_names(params)
+    masks = {k: rng.rand(*params[k].shape) < 0.1 for k in train}
+    moved = dict(params)
+    for k in train:
+        step = rng.randn(*params[k].shape).astype(np.float32) * 0.02
+        moved[k] = np.where(masks[k], params[k] + step, params[k])
+    return params, moved, masks, frames, labels
+
+
+def _assert_scoring_close(jnet, tnet, frames, labels):
+    j_ids, t_ids = jnet.predict_input(frames), tnet.predict_input(frames)
+    assert t_ids.dtype == j_ids.dtype and t_ids.shape == j_ids.shape
+    assert (t_ids == j_ids).mean() > 0.99
+    j_ids, j_cms, j_mious, j_losses = jnet.predict_with_metric_seq(frames,
+                                                                   labels)
+    t_ids, t_cms, t_mious, t_losses = tnet.predict_with_metric_seq(frames,
+                                                                   labels)
+    differ = t_ids != j_ids
+    assert differ.mean() < 0.01
+    for b in range(len(frames)):
+        assert np.abs(t_cms[b] - j_cms[b]).sum() <= 2 * int(differ[b].sum())
+    np.testing.assert_allclose(t_losses, j_losses, rtol=1e-3)
+
+
+def test_bf16_client_call_sequence_matches(case, tmp_path):
+    params, moved, masks, frames, labels = case
+    jnet = JaxNetwork(dict(params), **KW)
+    tnet = TorchNetwork(dict(params), device="cpu", **KW)
+    _assert_scoring_close(jnet, tnet, frames, labels)
+
+    blob = jcodec.encode_delta(moved, masks, strategy="coord_desc_auto",
+                               use_native=False, wire_dtype="float16")
+    for net in (jnet, tnet):
+        net.apply_downlink(blob, strategy="coord_desc_auto",
+                           wire_dtype="float16")
+    j_vars, t_vars = jnet.get_vars(), tnet.get_vars()
+    for k in j_vars:
+        np.testing.assert_array_equal(t_vars[k], j_vars[k])
+    _assert_scoring_close(jnet, tnet, frames, labels)
+
+    j_path, t_path = str(tmp_path / "jax_client"), str(tmp_path / "torch_client")
+    jnet.save_to_frozen_graph(j_path)
+    tnet.save_to_frozen_graph(t_path)
+    j_folded = JaxNetwork(j_path + ".npz", **KW)
+    t_folded = TorchNetwork(t_path + ".npz", device="cpu", **KW)
+    assert t_folded._folded
+    _assert_scoring_close(j_folded, t_folded, frames, labels)
+
+
+def test_bf16_server_raises(case):
+    params = case[0]
+    with pytest.raises(NotImplementedError):
+        TorchNetwork(dict(params), class_weights_exp=configs.class_weights(EXP),
+                     height=64, frozen=False, scale=[1], mini_batch_size=4,
+                     lr=1e-3, compute_dtype="bfloat16", device="cpu")

@@ -75,3 +75,47 @@ def test_chip_smoke_and_port_sources_import_none_of_them():
     for path in files:
         bad = _imported_roots(path) & set(BLOCKED)
         assert not bad, (path, bad)
+
+
+_CHILD_MBCONV = r"""
+import sys
+
+BLOCKED = %r
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked import of " + name)
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in BLOCKED:
+        del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+
+import torch
+from ams_tpu_torch.ops import fused_mbconv, fused_mbconv_banded
+
+x = torch.zeros(1, 8, 5, 6, dtype=torch.bfloat16)
+ws = (torch.zeros(8, 16), torch.zeros(16), torch.zeros(9, 16),
+      torch.zeros(16), torch.zeros(16, 8), torch.zeros(8))
+assert fused_mbconv.mbconv_block(x, *ws, residual=True).shape == (1, 8, 5, 6)
+assert fused_mbconv_banded.mbconv_banded(x, *ws, stride=2).shape == \
+    (1, 8, 3, 3)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_mbconv_modules_import_and_run_without_jax_ams_tpu_cv2():
+    """The fused MBConv modules (K3, K4) import, and run their CPU path,
+    with jax, ams_tpu, cv2 and orbax blocked."""
+    assert {"ams_tpu_torch.ops.fused_mbconv",
+            "ams_tpu_torch.ops.fused_mbconv_banded"} <= set(_port_modules())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_MBCONV % (BLOCKED,)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split()[-1] == "ok"
