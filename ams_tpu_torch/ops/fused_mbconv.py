@@ -17,6 +17,23 @@ logical shape ``(B, C, H, W)``), masks out-of-image positions itself, and
 shared memory for every block of the student.  So ``run_fused_stage``
 chains the blocks on the plain tensor, and every stride-1 stage runs fused.
 
+The host side of the kernel's design (the header of ``csrc/mbconv.cu``
+gives the whole of it):
+- ``pack_weights`` lays the weights out as the kernel stages them: per
+  mid-channel chunk, the expand and project weights n-major with k
+  contiguous (each k padded to 16), and the depthwise weights with both
+  biases in f32, each chunk contiguous, so that a chunk lands in shared
+  memory by 16-byte ``cp.async`` copies.  ``packed_weights`` keeps them
+  beside the weight tensors, built once per parameter version;
+- ``stage_tile`` chooses the tile and the chunk by cost: the window
+  positions a tile stages and expands plus the pixels it projects (the
+  ragged edge included), over the blocks resident per SM, among tiles
+  whose accumulators fit ``ACC_BUDGET`` registers per thread.  The
+  compiled kernel gives the residency (``KernelOccupancy``: its warp
+  tilings, their registers, and CUDA's occupancy calculator);
+- ``warp_tiles`` gives the (16-pixel x 8-channel) project tiles each warp
+  keeps in registers, from the tilings the kernel compiles.
+
 Storage points, the same in the kernel, in ``mbconv_plain`` and in both TPU
 kernels: bf16 input; expand with f32 accumulation, + bias, relu6, bf16;
 depthwise in f32 with f32 weights, + bias, relu6, bf16; project with f32
@@ -32,9 +49,11 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ams_tpu_torch.models.layers import _same_pad
 from ams_tpu_torch.ops import build
@@ -42,10 +61,15 @@ from ams_tpu_torch.ops import build
 SOURCE = "ams_tpu_torch/csrc/mbconv.cu"
 REPLACES = ("ams_tpu/ops/fused_mbconv.py:60 (_mbconv_kernel; pallas_call "
             ":150, mbconv_flat :115, run_fused_stage :237)")
-# Shared memory a block may use on Hopper (227 KB).
+# Shared memory a block may use on Hopper (227 KB)
 SMEM_LIMIT = 232448
-_TILES = ((8, 16), (4, 16), (2, 16), (1, 16))   # output rows x columns
-_CHUNKS = (64, 48, 32, 16, 8)                   # mid channels per pass
+# the kernel's block: no plan within ACC_BUDGET needs more threads
+THREADS = 256
+# f32 project accumulators a thread may hold
+ACC_BUDGET = 128
+_TILE_WIDTHS = (8, 13, 16, 32)     # 13 divides the 65-wide grids
+_CHUNKS = (64, 48, 32, 16)         # mid channels per pass; 8 where 16
+                                   # does not divide them
 
 
 def _round_up(x: int, m: int) -> int:
@@ -60,46 +84,152 @@ def out_geometry(h: int, w: int, stride: int, rate: int):
     return -(-h // stride), -(-w // stride), top, left
 
 
+def _window(tile_h: int, tile_w: int, stride: int, rate: int) -> int:
+    return ((tile_h - 1) * stride + 2 * rate + 1) * \
+        ((tile_w - 1) * stride + 2 * rate + 1)
+
+
 def smem_bytes(cin: int, cout: int, stride: int, rate: int,
                has_expand: bool, tile_h: int, tile_w: int,
                chunk: int) -> int:
     """Dynamic shared memory of one kernel block; the same sum as
-    ``make_plan`` in csrc/mbconv.cu (each region rounded to 16 bytes)."""
-    cin_p = _round_up(cin, 16)
-    chunk_p = _round_up(chunk, 16)
-    halo = ((tile_h - 1) * stride + 2 * rate + 1) * \
-        ((tile_w - 1) * stride + 2 * rate + 1)
-    halo_p = _round_up(halo, 16)
+    ``make_plan`` in csrc/mbconv.cu (each region rounded to 16 bytes; the
+    chunk's weights twice, for the copy in flight; bf16 rows of the 1x1
+    depths rounded to 16, plus 8)."""
+    cin_p, chunk_p = _round_up(cin, 16), _round_up(chunk, 16)
+    halo_p = _round_up(_window(tile_h, tile_w, stride, rate), 16)
     pix = tile_h * tile_w
-    ld_acc = (cout + 23) // 32 * 32 + 8
-    regions = [halo_p * (cin_p + 8) * 2]                    # input tile
+    regions = [halo_p * (cin_p + 8) * 2,                    # input window
+               halo_p,                                      # in-image flags
+               pix * 4]                                     # pixel offsets
     if has_expand:
-        regions += [chunk * (cin_p + 8) * 2,                # expand weights
-                    halo_p * (chunk + 8) * 2]               # mid tile
-    regions += [pix * (chunk_p + 8) * 2,                    # depthwise out
-                cout * (chunk_p + 8) * 2,                   # project weights
-                pix * ld_acc * 4,                           # f32 accumulator
-                11 * chunk * 4]                             # dw weights, biases
+        regions += [chunk * (cin_p + 8) * 2] * 2            # expand weights
+        regions += [halo_p * (chunk_p + 8) * 2]             # mid tile
+    regions += [pix * (chunk_p + 8) * 2]                    # depthwise out
+    regions += [cout * (chunk_p + 8) * 2] * 2               # project weights
+    regions += [11 * chunk * 4] * 2                         # dw weights, biases
     return sum(_round_up(r, 16) for r in regions)
 
 
+def warp_tiles(pix: int, cout: int, tilings):
+    """(MT, NT) of ``tilings`` (the kernel's) whose warps cover the
+    (pix/16) x (cout/8) project tiles of a block: the fewest tiles per
+    warp, then the fewest fragment bytes per mma; None if none covers
+    them."""
+    pm, pn = pix // 16, cout // 8
+    fits = [(mt * nt, (2 * mt + nt) / (mt * nt), mt, nt)
+            for mt, nt in tilings
+            if -(-pm // mt) * -(-pn // nt) <= THREADS // 32]
+    return min(fits)[2:] if fits else None
+
+
+def acc_registers(tile_h: int, tile_w: int, cout: int,
+                  tilings) -> Optional[int]:
+    """f32 project accumulators one thread holds for this tile."""
+    wt = warp_tiles(tile_h * tile_w, cout, tilings)
+    return None if wt is None else 4 * wt[0] * wt[1]
+
+
+class KernelOccupancy:
+    """The built kernel as the planner sees it: ``tilings``, its warp
+    tilings (MT, NT); ``registers``, each one's registers and spilled
+    bytes per thread; ``resident(mt, nt, smem)``, the blocks of a tiling
+    resident per SM at that much shared memory, by CUDA's occupancy
+    calculator.  ``stage_tile`` takes any object with ``tilings`` and
+    ``resident``."""
+
+    def __init__(self, lib):
+        cap = 16
+        mt, nt, regs, spill = [(ctypes.c_int * cap)() for _ in range(4)]
+        n = lib.mbconv_tilings(mt, nt, regs, spill, cap)
+        if n < 0:
+            raise RuntimeError("mbconv_tilings failed: CUDA error %d" % -n)
+        self._lib = lib
+        self.registers = {(mt[i], nt[i]): (regs[i], spill[i])
+                          for i in range(n)}
+        self.tilings = tuple(self.registers)
+
+    def resident(self, mt: int, nt: int, smem: int) -> int:
+        got = self._lib.mbconv_resident(mt, nt, smem)
+        if got < 0:
+            raise RuntimeError("mbconv_resident(%d, %d, %d) failed: CUDA "
+                               "error %d" % (mt, nt, smem, -got))
+        return got
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_occupancy() -> KernelOccupancy:
+    """``KernelOccupancy`` of the built kernel (builds it on first use)."""
+    return KernelOccupancy(_library())
+
+
+def plan_cost(cin, cout, stride, rate, has_expand, tile_h, tile_w, chunk,
+              h=None, w=None, *, occupancy) -> dict:
+    """What ``stage_tile`` weighs for one plan: tiles per image, window
+    positions staged (and expanded, where the block expands) and pixels
+    projected per output pixel, blocks resident per SM (``occupancy``, at
+    the plan's tiling and shared memory), and the cost.  Without the grid
+    (h, w) the ragged edge is left out."""
+    if h is None:
+        tiles, out_px = 1.0, tile_h * tile_w
+    else:
+        ho, wo, _, _ = out_geometry(h, w, stride, rate)
+        tiles, out_px = -(-ho // tile_h) * -(-wo // tile_w), ho * wo
+    nbytes = smem_bytes(cin, cout, stride, rate, has_expand, tile_h, tile_w,
+                        chunk)
+    wt = warp_tiles(tile_h * tile_w, cout, occupancy.tilings)
+    acc = None if wt is None else 4 * wt[0] * wt[1]
+    resident = (0 if wt is None or nbytes > SMEM_LIMIT
+                else occupancy.resident(wt[0], wt[1], nbytes))
+    window = tiles * _window(tile_h, tile_w, stride, rate) / out_px
+    projected = tiles * tile_h * tile_w / out_px
+    # a second resident block runs while the first waits at a barrier; a
+    # third adds little
+    return {"tiles": tiles, "window_per_px": window,
+            "projected_per_px": projected, "resident": resident,
+            "smem": nbytes, "warp_tiles": wt, "acc_registers": acc,
+            "cost": ((window + projected) / min(resident, 2) if resident
+                     else float("inf"))}
+
+
+@functools.lru_cache(maxsize=None)
 def stage_tile(cin: int, cmid: int, cout: int, stride: int, rate: int,
-               has_expand: bool):
-    """(tile_h, tile_w, chunk) for one block: the largest output tile,
-    then the largest mid-channel chunk (a multiple of 8 dividing ``cmid``),
-    whose shared memory fits ``SMEM_LIMIT``.  Replaces the TPU's
-    ``stage_fits_vmem``: a 16-pixel tile with an 8-channel chunk fits
-    every block of the student, so a block never runs unfused for want of
-    memory."""
-    chunks = [c for c in _CHUNKS if cmid % c == 0]
-    for tile_h, tile_w in _TILES:
-        for chunk in chunks:
-            if smem_bytes(cin, cout, stride, rate, has_expand, tile_h,
-                          tile_w, chunk) <= SMEM_LIMIT:
-                return tile_h, tile_w, chunk
-    raise ValueError("no MBConv tile fits %d bytes of shared memory for "
-                     "cin %d, cmid %d, cout %d" % (SMEM_LIMIT, cin, cmid,
-                                                   cout))
+               has_expand: bool, h: Optional[int] = None,
+               w: Optional[int] = None, *, occupancy):
+    """(tile_h, tile_w, chunk) for one block on an (h, w) input grid: the
+    plan of least ``plan_cost`` among the tiles of width 8, 13, 16 or 32
+    with a multiple of 16 pixels (at most 256), the chunks of 16 to 64 mid
+    channels that divide ``cmid`` (8, where 16 does not), whose shared
+    memory fits ``SMEM_LIMIT`` and whose project accumulators fit
+    ``ACC_BUDGET`` on one of ``occupancy``'s tilings; ties go to the
+    larger chunk (fewer passes).  Replaces the TPU's ``stage_fits_vmem``:
+    a 16-pixel tile with a 16-channel chunk fits every block of the
+    student, so a block never runs unfused for want of memory."""
+    chunks = _CHUNKS if cmid % 16 == 0 else (8,)
+    best = None
+    for tile_w in _TILE_WIDTHS:
+        for tile_h in range(1, 257 // tile_w + 1):
+            if (tile_h * tile_w) % 16:
+                continue
+            acc = acc_registers(tile_h, tile_w, cout, occupancy.tilings)
+            if acc is None or acc > ACC_BUDGET:
+                continue
+            for chunk in chunks:
+                if cmid % chunk or smem_bytes(
+                        cin, cout, stride, rate, has_expand, tile_h, tile_w,
+                        chunk) > SMEM_LIMIT:
+                    continue
+                cost = plan_cost(cin, cout, stride, rate, has_expand, tile_h,
+                                 tile_w, chunk, h, w,
+                                 occupancy=occupancy)["cost"]
+                key = (cost, -chunk, -tile_h * tile_w)
+                if best is None or key < best[0]:
+                    best = (key, (tile_h, tile_w, chunk))
+    if best is None:
+        raise ValueError("no MBConv tile fits %d bytes of shared memory and "
+                         "%d accumulators for cin %d, cmid %d, cout %d"
+                         % (SMEM_LIMIT, ACC_BUDGET, cin, cmid, cout))
+    return best[1]
 
 
 def _relu6(x):
@@ -144,10 +274,73 @@ def mbconv_plain(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *,
     return out.to(bf16).permute(0, 3, 1, 2)
 
 
+def pack_weights(w_expand, b_expand, w_dw, b_dw, w_proj, chunk: int,
+                 device):
+    """The weights in the kernel's layout for one chunk size, on
+    ``device``, each chunk contiguous: ``we`` (Cmid, Cin rounded up to 16)
+    bf16, the expand weights n-major with the k padding zero (None without
+    expand); ``wp`` (Cmid/chunk, Cout, chunk rounded up to 16) bf16, the
+    project weights n-major with the k padding zero; ``f`` (Cmid/chunk, 11,
+    chunk) f32, the nine depthwise taps, the depthwise bias and the expand
+    bias (zero without expand)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cmid, cout = w_dw.shape[1], w_proj.shape[1]
+    n = cmid // chunk
+    dev = device
+    we = None
+    if w_expand is not None:
+        cin = w_expand.shape[0]
+        we = torch.zeros((cmid, _round_up(cin, 16)), dtype=bf16, device=dev)
+        we[:, :cin] = w_expand.to(dev, bf16).t()
+    wp = torch.zeros((n, cout, _round_up(chunk, 16)), dtype=bf16, device=dev)
+    wp[:, :, :chunk] = w_proj.to(dev, bf16).reshape(n, chunk, cout) \
+        .transpose(1, 2)
+    b_exp = (b_expand.reshape(-1).to(dev, f32) if w_expand is not None
+             else torch.zeros(cmid, dtype=f32, device=dev))
+    f = torch.cat([w_dw.to(dev, f32).reshape(9, n, chunk).transpose(0, 1),
+                   b_dw.reshape(1, n, chunk).to(dev, f32).transpose(0, 1),
+                   b_exp.reshape(1, n, chunk).transpose(0, 1)],
+                  dim=1).contiguous()
+    return we, wp, f
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    # inference tensors carry no version counter: such a block is rebuilt
+    return None if t.is_inference() else t._version
+
+
+_PACKED = WeakIdKeyDictionary()
+
+
+def packed_weights(w_expand, b_expand, w_dw, b_dw, w_proj, chunk: int,
+                   device):
+    """``pack_weights`` of these tensors, kept beside ``w_proj`` while it
+    lives and reused while all five are the same objects at the same
+    versions: a new parameter dict, a new fold (``fused_block`` makes new
+    tensors) or an in-place update packs them again.  Tensors made under
+    inference mode carry no version and are packed at every call."""
+    others = (w_expand, b_expand, w_dw, b_dw)
+    versions = tuple(_version(t) for t in others + (w_proj,)
+                     if t is not None)
+    hit = _PACKED.get(w_proj)
+    if (hit is None or None in versions or hit[1] != versions
+            or any(a is not b for a, b in zip(hit[0], others))):
+        hit = (others, versions, {})
+        if None not in versions:
+            _PACKED[w_proj] = hit
+    key = (chunk, torch.device(device))
+    bufs = hit[2].get(key)
+    if bufs is None:
+        with torch.inference_mode(False):
+            bufs = pack_weights(*others, w_proj, chunk, device)
+        hit[2][key] = bufs
+    return bufs
+
+
 class FusedBlock:
-    """Folded weights of one block in the kernel's layout: w_expand
-    (Cin, Cmid) bf16 or None, w_dw (9, Cmid) f32, w_proj (Cmid, Cout)
-    bf16, biases (1, C) f32 (the JAX ``FusedBlock``'s shapes)."""
+    """Folded weights of one block: w_expand (Cin, Cmid) bf16 or None,
+    w_dw (9, Cmid) f32, w_proj (Cmid, Cout) bf16, biases (1, C) f32 (the
+    JAX ``FusedBlock``'s shapes)."""
 
     def __init__(self, folded: Dict, name: str, has_expand: bool,
                  rate: int, residual: bool):
@@ -175,17 +368,12 @@ _SOURCES = ("/expand/weights", "/expand/folded_bias",
 _BLOCK_CACHE: Dict[tuple, tuple] = {}
 
 
-def _version(t: torch.Tensor) -> Optional[int]:
-    # inference tensors carry no version counter: such a block is rebuilt
-    return None if t.is_inference() else t._version
-
-
 def fused_block(folded: Dict, name: str, has_expand: bool, rate: int,
                 residual: bool) -> FusedBlock:
     """``FusedBlock`` of ``folded[name + ...]``, reused while the folded
     tensors are the same objects at the same version: a new parameter
     dict (``apply_downlink``, a new fold) or an in-place update rebuilds
-    it."""
+    it, and so packs its weights again (``packed_weights``)."""
     srcs = tuple(folded[name + k] for k in _SOURCES
                  if has_expand or not k.startswith("/expand"))
     versions = tuple(_version(t) for t in srcs)
@@ -204,19 +392,25 @@ def _library():
     lib = build.load("mbconv")
     fn = lib.mbconv_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 16 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mbconv_smem_bytes.argtypes = [ctypes.c_int] * 8
         lib.mbconv_smem_bytes.restype = ctypes.c_int
+        lib.mbconv_tilings.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4 \
+            + [ctypes.c_int]
+        lib.mbconv_tilings.restype = ctypes.c_int
+        lib.mbconv_resident.argtypes = [ctypes.c_int] * 3
+        lib.mbconv_resident.restype = ctypes.c_int
     return lib
 
 
 def launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *, stride,
            rate, residual):
     """One kernel launch on CUDA tensors, after every check the kernel
-    relies on; raises on anything it cannot take.  Returns the output;
-    the callers count the launch."""
+    relies on; raises on anything it cannot take.  The weights go in
+    packed (``packed_weights``).  Returns the output; the callers count
+    the launch."""
     if x.dim() != 4:
         raise ValueError("x must be (B, C, H, W); got %s" % (tuple(x.shape),))
     if x.dtype != torch.bfloat16:
@@ -237,7 +431,7 @@ def launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *, stride,
         raise ValueError("w_dw %s, w_proj %s for cmid %d"
                          % (tuple(w_dw.shape), tuple(w_proj.shape), cmid))
     if cin % 8 or cmid % 8 or cout % 8:
-        raise ValueError("the kernel takes channel counts that are multiples "
+        raise ValueError("the kernel takes cin, cmid and cout in multiples "
                          "of 8; got %d, %d, %d" % (cin, cmid, cout))
     if stride not in (1, 2) or rate < 1 or (stride == 2 and rate != 1):
         raise ValueError("stride 1 at any rate, or stride 2 at rate 1; got "
@@ -245,25 +439,25 @@ def launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *, stride,
     if residual and (stride != 1 or cin != cout):
         raise ValueError("a residual block has stride 1 and cin == cout")
     dev = x.device
-    bf16, f32 = torch.bfloat16, torch.float32
-    ws = [w_expand.to(dev, bf16).contiguous() if has_expand else None,
-          b_expand.reshape(-1).to(dev, f32).contiguous() if has_expand
-          else None,
-          w_dw.to(dev, f32).contiguous(),
-          b_dw.reshape(-1).to(dev, f32).contiguous(),
-          w_proj.to(dev, bf16).contiguous(),
-          b_proj.reshape(-1).to(dev, f32).contiguous()]
-    ho, wo, top, left = out_geometry(h, w, stride, rate)
+    occupancy = kernel_occupancy()
     tile_h, tile_w, chunk = stage_tile(cin, cmid, cout, stride, rate,
-                                       has_expand)
-    out = torch.empty((b, ho, wo, cout), dtype=bf16,
+                                       has_expand, h, w, occupancy=occupancy)
+    mt, nt = warp_tiles(tile_h * tile_w, cout, occupancy.tilings)
+    we, wp, f = packed_weights(w_expand, b_expand, w_dw, b_dw, w_proj, chunk,
+                               dev)
+    bp = b_proj.reshape(-1).to(dev, torch.float32).contiguous()
+    if bp.data_ptr() % 16:
+        raise ValueError("b_proj must start on a 16-byte boundary")
+    ho, wo, top, left = out_geometry(h, w, stride, rate)
+    out = torch.empty((b, ho, wo, cout), dtype=torch.bfloat16,
                       device=dev).permute(0, 3, 1, 2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().mbconv_launch(
-            x.data_ptr(), *(0 if t is None else t.data_ptr() for t in ws),
-            out.data_ptr(), b, h, w, cin, cmid, cout, ho, wo, stride, rate,
-            top, left, int(residual), tile_h, tile_w, chunk, stream)
+            x.data_ptr(), 0 if we is None else we.data_ptr(), wp.data_ptr(),
+            f.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, cmid,
+            cout, ho, wo, stride, rate, top, left, int(residual), tile_h,
+            tile_w, chunk, mt, nt, stream)
     if err != 0:
         raise RuntimeError("mbconv kernel launch failed: CUDA error %d" % err)
     return out

@@ -585,12 +585,68 @@ def mbconv_bound_ms(b, cin, cmid, cout, h, w, ho, wo, has_expand,
                                        else "operations")
 
 
+# every block of the student at the 512x1024 forward: (name, cin, cmid,
+# cout, stride, rate, input grid)
+STUDENT_BLOCKS = (
+    ("expanded_conv", 32, 32, 16, 1, 1, (257, 513)),
+    ("expanded_conv_1", 16, 96, 24, 2, 1, (257, 513)),
+    ("expanded_conv_2", 24, 144, 24, 1, 1, (129, 257)),
+    ("expanded_conv_3", 24, 144, 32, 2, 1, (129, 257)),
+    ("expanded_conv_4", 32, 192, 32, 1, 1, (65, 129)),
+    ("expanded_conv_6", 32, 192, 64, 2, 1, (65, 129)),
+    ("expanded_conv_7", 64, 384, 64, 1, 1, (33, 65)),
+    ("expanded_conv_10", 64, 384, 96, 1, 1, (33, 65)),
+    ("expanded_conv_11", 96, 576, 96, 1, 1, (33, 65)),
+    ("expanded_conv_13", 96, 576, 160, 1, 1, (33, 65)),
+    ("expanded_conv_14", 160, 960, 160, 1, 2, (33, 65)),
+    ("expanded_conv_16", 160, 960, 320, 1, 2, (33, 65)),
+)
+
+
+def mbconv_inputs(dev, gen, b, cin, cmid, cout, h, w):
+    """Seeded bf16 channels-last input and weights of one block, as
+    ``FusedBlock`` holds them: (x, (w_expand, b_expand, w_dw, b_dw,
+    w_proj, b_proj)).  The launcher packs the weights at the first call
+    and reuses them after (``fused_mbconv.packed_weights``)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    he = cin != cmid
+    x = torch.randn(b, cin, h, w, generator=gen).to(dev, bf16) \
+        .contiguous(memory_format=torch.channels_last)
+    we = (torch.randn(cin, cmid, generator=gen) / cin ** 0.5) \
+        .to(dev, bf16) if he else None
+    be = (torch.randn(cmid, generator=gen) * 0.1).to(dev) if he else None
+    wd = (torch.randn(9, cmid, generator=gen) / 3).to(dev)
+    bd = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
+    wp = (torch.randn(cmid, cout, generator=gen) / cmid ** 0.5).to(dev, bf16)
+    bp = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+    return x, (we, be, wd, bd, wp, bp)
+
+
+def within_two_ulps(got, want):
+    """(ok, max abs err, outputs differing): |got - want| <= 2^-6 |want| +
+    2^-8 max|want|, two bf16 ulps, and got finite."""
+    import torch
+
+    d = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    ok = bool((d <= 2 ** -6 * want.float().abs() + 2 ** -8 * scale).all()) \
+        and bool(torch.isfinite(got.float()).all())
+    return ok, float(d.max()), int((d > 0).sum()), scale
+
+
 def phase_mbconv_checks(dev):
     """Phase 2, K3/K4: the fused MBConv kernel against ``mbconv_plain`` in
     bf16 at the client's block shapes, through K3's wrapper (stride 1)
     and K4's (stride 2), with the kernel's, the plain version's and the
     library's times: the port's own unfused block (cuDNN bf16,
     channels-last), and beside it the same block in f32 (TF32 off).
+    Every stride-1 block shape of the 512x1024 forward is timed at B=8,
+    and every one of the 12 block shapes is launched once at B=1 on its
+    grid, so that no plan ``stage_tile`` returns is refused; so are the
+    cases of the JAX kernels' own parity tests (mid widths of 8
+    included), at B=2.
     Tolerance: |kernel - plain| <= 2^-6 |plain| + 2^-8 max|plain|, two
     bf16 ulps (the two differ only in the order of the 1x1 sums, which
     moves a bf16 rounding by one ulp now and then)."""
@@ -601,26 +657,72 @@ def phase_mbconv_checks(dev):
 
     bf16 = torch.bfloat16
     lib = fm._library()
+    occ = fm.kernel_occupancy()
+    for (mt, nt), (regs, spill) in occ.registers.items():
+        log("  warp tiling (%d, %d): %d registers per thread, %d bytes "
+            "spilled" % (mt, nt, regs, spill))
+    gen = torch.Generator().manual_seed(SEED + 9)
     # every block of the student: the C and Python shared-memory sums
-    # agree, and a tile fits
-    for cin, cmid, cout, s, r, he in (
-            (32, 32, 16, 1, 1, 0), (16, 96, 24, 2, 1, 1),
-            (24, 144, 24, 1, 1, 1), (24, 144, 32, 2, 1, 1),
-            (32, 192, 32, 1, 1, 1), (32, 192, 64, 2, 1, 1),
-            (64, 384, 64, 1, 1, 1), (64, 384, 96, 1, 1, 1),
-            (96, 576, 96, 1, 1, 1), (96, 576, 160, 1, 1, 1),
-            (160, 960, 160, 1, 2, 1), (160, 960, 320, 1, 2, 1)):
-        plan = fm.stage_tile(cin, cmid, cout, s, r, bool(he))
-        c_bytes = lib.mbconv_smem_bytes(cin, cout, s, r, he, *plan)
-        check(c_bytes == fm.smem_bytes(cin, cout, s, r, bool(he), *plan)
-              <= fm.SMEM_LIMIT, "shared memory plan %s: C %d bytes vs "
-              "Python %d" % (plan, c_bytes, fm.smem_bytes(
-                  cin, cout, s, r, bool(he), *plan)))
+    # agree, a tile fits, and the launcher takes the plan on the block's
+    # grid (one image, held against the plain version)
+    for name, cin, cmid, cout, s, r, (h, w) in STUDENT_BLOCKS:
+        he = cin != cmid
+        for grid in ((h, w), ()):
+            plan = fm.stage_tile(cin, cmid, cout, s, r, he, *grid,
+                                 occupancy=occ)
+            c_bytes = lib.mbconv_smem_bytes(cin, cout, s, r, int(he), *plan)
+            check(c_bytes == fm.smem_bytes(cin, cout, s, r, he, *plan)
+                  <= fm.SMEM_LIMIT, "shared memory plan %s: C %d bytes vs "
+                  "Python %d" % (plan, c_bytes, fm.smem_bytes(
+                      cin, cout, s, r, he, *plan)))
+        x, ws = mbconv_inputs(dev, gen, 1, cin, cmid, cout, h, w)
+        residual = s == 1 and cin == cout
+        with torch.no_grad():
+            if s == 1:
+                got = fm.mbconv_block(x, *ws, rate=r, residual=residual)
+            else:
+                got = fb.mbconv_banded(x, *ws, stride=s, residual=residual)
+            want = fm.mbconv_plain(x, *ws, stride=s, rate=r,
+                                   residual=residual)
+            torch.cuda.synchronize()
+        ok, err, _, _ = within_two_ulps(got, want)
+        check(ok, "%s at 1x%dx%d: plan %s differs from mbconv_plain by %g"
+              % (name, h, w, plan, err))
     log("  shared-memory plans of the 12 block shapes agree between "
-        "csrc/mbconv.cu and ops/fused_mbconv.py, all under %d bytes"
+        "csrc/mbconv.cu and ops/fused_mbconv.py, all under %d bytes; the "
+        "launcher takes each plan and matches mbconv_plain at B=1"
         % fm.SMEM_LIMIT)
+    # the cases of tests/test_fused_mbconv.py and
+    # tests/test_fused_mbconv_banded.py (h, w, cin, cmid, cout, stride,
+    # rate, residual), which the port's cuda-marked test also runs
+    jax_cases = [
+        (13, 11, 8, 32, 8, 1, 1, True), (13, 11, 8, 32, 16, 1, 1, False),
+        (9, 9, 8, 8, 8, 1, 1, False), (17, 15, 16, 96, 16, 1, 2, True),
+        (32, 48, 8, 32, 8, 1, 1, True), (32, 48, 8, 32, 16, 1, 1, False),
+        (24, 32, 8, 8, 16, 1, 1, False), (32, 48, 8, 32, 16, 2, 1, False),
+        (64, 32, 8, 32, 16, 2, 1, False), (40, 48, 8, 16, 8, 1, 1, False),
+        (33, 65, 8, 32, 8, 1, 1, True), (17, 33, 8, 8, 16, 1, 1, False),
+        (33, 65, 8, 32, 16, 1, 1, False)]
+    for h, w, cin, cmid, cout, s, r, residual in jax_cases:
+        x, ws = mbconv_inputs(dev, gen, 2, cin, cmid, cout, h, w)
+        plan = fm.stage_tile(cin, cmid, cout, s, r, cin != cmid, h, w,
+                             occupancy=occ)
+        with torch.no_grad():
+            if s == 1:
+                got = fm.mbconv_block(x, *ws, rate=r, residual=residual)
+            else:
+                got = fb.mbconv_banded(x, *ws, stride=s, residual=residual)
+            want = fm.mbconv_plain(x, *ws, stride=s, rate=r,
+                                   residual=residual)
+            torch.cuda.synchronize()
+        ok, err, _, _ = within_two_ulps(got, want)
+        check(ok, "JAX test case %s: plan %s differs from mbconv_plain by "
+              "%g" % ((h, w, cin, cmid, cout, s, r, residual), plan, err))
+    log("  the %d cases of the JAX kernels' parity tests (chunks of 8 "
+        "included) match mbconv_plain at B=2" % len(jax_cases))
 
-    # (label, wrapper, b, cin, cmid, cout, h, w, stride, rate)
+    # (label, wrapper, b, cin, cmid, cout, h, w, stride, rate); the first
+    # K3 and the first K4 case give the kernels line its numbers
     cases = [
         ("expanded_conv_2 (stride 1, residual)", "K3",
          B, 24, 144, 24, 129, 257, 1, 1),
@@ -630,27 +732,27 @@ def phase_mbconv_checks(dev):
          B, 160, 960, 160, 33, 65, 1, 2),
         ("expanded_conv (no expand)", "K3",
          B, 32, 32, 16, 257, 513, 1, 1),
+        ("expanded_conv_4 (32->192->32, residual)", "K3",
+         B, 32, 192, 32, 65, 129, 1, 1),
+        ("expanded_conv_7 (64->384->64, residual)", "K3",
+         B, 64, 384, 64, 33, 65, 1, 1),
+        ("expanded_conv_10 (64->384->96)", "K3",
+         B, 64, 384, 96, 33, 65, 1, 1),
+        ("expanded_conv_11 (96->576->96, residual)", "K3",
+         B, 96, 576, 96, 33, 65, 1, 1),
+        ("expanded_conv_13 (96->576->160)", "K3",
+         B, 96, 576, 160, 33, 65, 1, 1),
         ("stride 2 at a banded shape", "K4",
          B, 16, 96, 24, 256, 512, 2, 1),
         ("expanded_conv_1 (stride 2, odd 257x513)", "K4",
          B, 16, 96, 24, 257, 513, 2, 1),
     ]
-    gen = torch.Generator().manual_seed(SEED + 9)
     rows = []
     for label, which, b, cin, cmid, cout, h, w, s, r in cases:
         he = cin != cmid
         residual = s == 1 and cin == cout
-        x = torch.randn(b, cin, h, w, generator=gen).to(dev, bf16) \
-            .contiguous(memory_format=torch.channels_last)
-        we = (torch.randn(cin, cmid, generator=gen) / cin ** 0.5) \
-            .to(dev, bf16) if he else None
-        be = (torch.randn(cmid, generator=gen) * 0.1).to(dev) if he else None
-        wd = (torch.randn(9, cmid, generator=gen) / 3).to(dev)
-        bd = (torch.randn(cmid, generator=gen) * 0.1).to(dev)
-        wp = (torch.randn(cmid, cout, generator=gen) / cmid ** 0.5).to(
-            dev, bf16)
-        bp = (torch.randn(cout, generator=gen) * 0.1).to(dev)
-        ws = (we, be, wd, bd, wp, bp)
+        x, ws = mbconv_inputs(dev, gen, b, cin, cmid, cout, h, w)
+        we, be, wd, bd, wp, bp = ws
         if which == "K3":
             def kernel():
                 return fm.mbconv_block(x, *ws, rate=r, residual=residual)
@@ -682,10 +784,7 @@ def phase_mbconv_checks(dev):
             got, want = kernel(), plain()
             lib_out = library(bf16)
             torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            scale = float(want.float().abs().max())
-            ok = bool((d <= 2 ** -6 * want.float().abs()
-                       + 2 ** -8 * scale).all())
+            ok, max_err, differing, scale = within_two_ulps(got, want)
             lib_err = float((lib_out.float() - want.float()).abs().max())
             k_ms = cuda_ms(kernel, 20)
             p_ms = cuda_ms(plain, 3)
@@ -694,25 +793,37 @@ def phase_mbconv_checks(dev):
         ho, wo = got.shape[2], got.shape[3]
         bound, bound_by = mbconv_bound_ms(b, cin, cmid, cout, h, w, ho, wo,
                                           int(he), int(residual))
+        plan = fm.stage_tile(cin, cmid, cout, s, r, he, h, w, occupancy=occ)
+        cost = fm.plan_cost(cin, cout, s, r, he, *plan, h, w, occupancy=occ)
         row = {"case": label, "wrapper": which,
                "shape": [b, cin, cmid, cout, h, w, s, r],
-               "plan": list(fm.stage_tile(cin, cmid, cout, s, r, he)),
-               "max_abs_err": float(d.max()), "scale": scale,
-               "differing": int((d > 0).sum()), "elements": d.numel(),
+               "plan": {"tile": [plan[0], plan[1]], "chunk": plan[2],
+                        "threads": fm.THREADS,
+                        "warp_tiles": list(cost["warp_tiles"]),
+                        "registers": occ.registers[cost["warp_tiles"]][0],
+                        "resident_per_sm": cost["resident"],
+                        "window_per_px": cost["window_per_px"],
+                        "projected_per_px": cost["projected_per_px"],
+                        "smem": cost["smem"]},
+               "max_abs_err": max_err, "scale": scale,
+               "differing": differing, "elements": got.numel(),
                "library_bf16_max_abs_err": lib_err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "library_f32_ms": l32_ms, "bound_ms": bound,
-               "bound_by": bound_by}
-        log("  MBConv %s [%s] %s, plan %s: max abs err %.4g (|out| up to "
-            "%.4g; %d of %d differ), unfused bf16 vs plain %.4g; kernel "
-            "%.4f ms, plain %.4f ms, library bf16 %.4f ms (f32 %.4f ms), "
-            "bound %.4f ms (%s)"
-            % (label, which, row["shape"], row["plan"], row["max_abs_err"],
-               scale, row["differing"], row["elements"], lib_err, k_ms, p_ms,
-               l_ms, l32_ms, bound, bound_by))
-        check(ok and bool(torch.isfinite(got.float()).all()),
-              "mbconv kernel differs from mbconv_plain beyond two bf16 ulps "
-              "in case %s: max abs err %g" % (label, row["max_abs_err"]))
+               "bound_by": bound_by, "beats_unfused_bf16": k_ms < l_ms}
+        log("  MBConv %s [%s] %s, tile %dx%d chunk %d threads %d, %d "
+            "resident per SM (window "
+            "%.3f, projected %.3f per output pixel): max abs err %.4g (|out| "
+            "up to %.4g; %d of %d differ), unfused bf16 vs plain %.4g; "
+            "kernel %.4f ms, plain %.4f ms, library bf16 %.4f ms (f32 %.4f "
+            "ms), bound %.4f ms (%s); beats the unfused bf16 block: %s"
+            % (label, which, row["shape"], plan[0], plan[1], plan[2],
+               fm.THREADS, cost["resident"], cost["window_per_px"],
+               cost["projected_per_px"],
+               max_err, scale, differing, row["elements"], lib_err, k_ms,
+               p_ms, l_ms, l32_ms, bound, bound_by, k_ms < l_ms))
+        check(ok, "mbconv kernel differs from mbconv_plain beyond two bf16 "
+              "ulps in case %s: max abs err %g" % (label, max_err))
         rows.append(row)
     return rows
 
@@ -1330,6 +1441,17 @@ def main() -> int:
                 n: r["k3_per_forward" if which == "K3" else "k4_per_forward"]
                 for n, r in bf16_rows.items()},
             "cases": mine})
+    for c in mb_cases:
+        log("MBConv %s [%s]: tile %s chunk %d threads %d tiling %s (%d "
+            "resident); kernel %.4f ms, "
+            "unfused bf16 %.4f ms, f32 %.4f ms, plain %.4f ms, bound %.4f ms; "
+            "max abs err %.4g; beats the unfused bf16 block: %s"
+            % (c["case"], c["wrapper"], "x".join(map(str, c["plan"]["tile"])),
+               c["plan"]["chunk"], c["plan"]["threads"],
+               tuple(c["plan"]["warp_tiles"]), c["plan"]["resident_per_sm"],
+               c["kernel_ms"],
+               c["library_ms"], c["library_f32_ms"], c["plain_ms"],
+               c["bound_ms"], c["max_abs_err"], c["beats_unfused_bf16"]))
     log("client throughput: %.1f frames/s end to end, %.1f frames/s on the "
         "device (batch %d, %dx%d)" % (host_fps, dev_fps, B, H, W))
     for name, r in bf16_rates.items():

@@ -45,6 +45,8 @@ from ams_tpu_torch.ops import fused_mbconv_banded as FB
 from ams_tpu_torch.runtime.network import SemanticNetwork
 from ams_tpu_torch.stream.codec import encode_delta
 
+from test_torch_mbconv import _OCC    # the planner's H100 stand-in
+
 CI = tuple(range(19))
 EXACT_BAR = 2.0 ** -7
 
@@ -148,8 +150,8 @@ def test_fused_true_fuses_every_stride1_stage(case, monkeypatch):
     assert not stage_fits_vmem(h, w, stage0)
     cin, cmid, cout = 32, 32, 16
     assert F.smem_bytes(cin, cout, 1, 1, False,
-                        *F.stage_tile(cin, cmid, cout, 1, 1, False)) \
-        <= F.SMEM_LIMIT
+                        *F.stage_tile(cin, cmid, cout, 1, 1, False,
+                                      occupancy=_OCC)) <= F.SMEM_LIMIT
     calls = []
     real = F.mbconv_block
 

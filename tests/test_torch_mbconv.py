@@ -199,23 +199,215 @@ _STUDENT_BLOCKS = [
     (96, 576, 96, 1, 1, True), (96, 576, 160, 1, 1, True),
     (160, 960, 160, 1, 2, True), (160, 960, 320, 1, 2, True),
 ]
+# each block's input grid in the 512x1024 forward (the stem gives 257x513)
+_STUDENT_GRIDS = [(257, 513), (257, 513), (129, 257), (129, 257),
+                  (65, 129), (65, 129), (33, 65), (33, 65), (33, 65),
+                  (33, 65), (33, 65), (33, 65)]
+
+
+class _H100Occupancy:
+    """The planner's view of the built kernel (``F.KernelOccupancy``) with
+    no card to ask: the registers per thread (and spilled bytes) of each
+    warp tiling as the compiler gave them on the card (PERF.md,
+    chip_smoke.py phase 2), and an H100 SM's 233,472 bytes of shared
+    memory (1 KB reserved per block), 65,536 registers (allocated per
+    thread in steps of 8) and 2,048 threads."""
+    registers = {(2, 2): (94, 0), (2, 3): (103, 0), (2, 4): (112, 0),
+                 (3, 4): (119, 0), (3, 5): (147, 0)}
+    tilings = tuple(registers)
+
+    def resident(self, mt, nt, smem):
+        regs = -(-self.registers[(mt, nt)][0] // 8) * 8
+        return min(233472 // (smem + 1024), 65536 // (regs * F.THREADS),
+                   2048 // F.THREADS)
+
+
+_OCC = _H100Occupancy()
 
 
 @pytest.mark.parametrize("block", _STUDENT_BLOCKS)
 def test_stage_tile_always_fits(block):
     """The shared-memory tile choice that replaces stage_fits_vmem finds a
     tile for every block of the student, inside the 227 KB a block may
-    use, with a chunk that divides the mid width."""
+    use, with a chunk that divides the mid width, on the block's grid of
+    the 512x1024 forward and with no grid given."""
+    cin, cmid, cout, stride, rate, has_expand = block
+    grid = _STUDENT_GRIDS[_STUDENT_BLOCKS.index(block)]
+    for hw in (grid, ()):
+        tile_h, tile_w, chunk = F.stage_tile(cin, cmid, cout, stride, rate,
+                                             has_expand, *hw, occupancy=_OCC)
+        assert (tile_h * tile_w) % 16 == 0 and cmid % chunk == 0
+        assert chunk % 8 == 0
+        assert F.smem_bytes(cin, cout, stride, rate, has_expand, tile_h,
+                            tile_w, chunk) <= F.SMEM_LIMIT
+        # the kernel takes it: chunks of 16 to 64 (the student's mid
+        # widths are multiples of 16), a compiled warp tiling
+        assert chunk % 16 == 0 and chunk <= 64
+        assert F.warp_tiles(tile_h * tile_w, cout, _OCC.tilings) \
+            in _OCC.tilings
+    # the smallest plan the student's blocks can take, a 1x16 tile with a
+    # 16-channel chunk, fits too: no block ever needs an unfused fallback
+    assert F.smem_bytes(cin, cout, stride, rate, has_expand, 1, 16,
+                        16) <= F.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("block,grid", list(zip(_STUDENT_BLOCKS,
+                                                _STUDENT_GRIDS)))
+def test_plan_accumulators_within_budget(block, grid):
+    """The project accumulators a thread keeps in registers stay within
+    ACC_BUDGET, and the warps' tiles cover the block's output tile."""
     cin, cmid, cout, stride, rate, has_expand = block
     tile_h, tile_w, chunk = F.stage_tile(cin, cmid, cout, stride, rate,
-                                         has_expand)
-    assert (tile_h * tile_w) % 16 == 0 and cmid % chunk == 0
-    assert chunk % 8 == 0
-    assert F.smem_bytes(cin, cout, stride, rate, has_expand, tile_h, tile_w,
-                        chunk) <= F.SMEM_LIMIT
-    # the smallest plan fits too: no block ever needs an unfused fallback
-    assert F.smem_bytes(cin, cout, stride, rate, has_expand, 1, 16,
-                        8) <= F.SMEM_LIMIT
+                                         has_expand, *grid, occupancy=_OCC)
+    mt, nt = F.warp_tiles(tile_h * tile_w, cout, _OCC.tilings)
+    warps = -(-(tile_h * tile_w // 16) // mt) * -(-(cout // 8) // nt)
+    assert warps <= F.THREADS // 32
+    assert F.acc_registers(tile_h, tile_w, cout, _OCC.tilings) \
+        == 4 * mt * nt <= F.ACC_BUDGET
+
+
+def test_tail_plan_expands_less_than_the_first_kernel():
+    """expanded_conv_16 (33x65, rate 2, 160->960->320): the first
+    kernel's 4x16 tile expanded 7,200 window positions per image for its
+    2,145 output pixels (3.36 each); the plan chosen by waste expands
+    fewer, and projects no more pixels."""
+    args = (160, 960, 320, 1, 2, True)
+    old = F.plan_cost(160, 320, 1, 2, True, 4, 16, 16, 33, 65,
+                      occupancy=_OCC)
+    assert old["window_per_px"] == pytest.approx(7200 / 2145)
+    new = F.plan_cost(160, 320, 1, 2, True,
+                      *F.stage_tile(*args, 33, 65, occupancy=_OCC), 33, 65,
+                      occupancy=_OCC)
+    assert new["window_per_px"] < 7200 / 2145
+    assert new["projected_per_px"] <= old["projected_per_px"]
+
+
+def _folded(rng, name, cin, cmid, cout, has_expand):
+    wt = _weights(rng, cin, cmid, cout, has_expand)
+    d = {name + "/depthwise/depthwise_weights": wt["wd"],
+         name + "/depthwise/folded_bias": wt["bd"],
+         name + "/project/weights": wt["wpr"],
+         name + "/project/folded_bias": wt["bp"]}
+    if has_expand:
+        d[name + "/expand/weights"] = wt["we"]
+        d[name + "/expand/folded_bias"] = wt["be"]
+    return params_from_numpy(d, "cpu")
+
+
+@pytest.mark.parametrize("block,grid", list(zip(_STUDENT_BLOCKS,
+                                                _STUDENT_GRIDS)))
+def test_packed_weights_unpack_to_the_block(block, grid):
+    """The kernel-layout weights of every block shape, at the chunk its
+    plan takes and at every other chunk it could take (8 included),
+    unpack to FusedBlock's own w_expand / w_proj / w_dw and biases bit for
+    bit; the k padding of both 1x1 products and a missing expand's bias
+    are zeros."""
+    cin, cmid, cout, stride, rate, has_expand = block
+    rng = np.random.RandomState(cin + cmid + cout)
+    bl = F.fused_block(_folded(rng, "pk", cin, cmid, cout, has_expand),
+                       "pk", has_expand, rate, False)
+    ws = (bl.w_expand, bl.b_expand, bl.w_dw, bl.b_dw, bl.w_proj)
+    plan_chunk = F.stage_tile(cin, cmid, cout, stride, rate, has_expand,
+                              *grid, occupancy=_OCC)[2]
+    chunks = [c for c in (8, 16, 32, 48, 64) if cmid % c == 0]
+    assert plan_chunk in chunks
+    for chunk in chunks:
+        we, wp, f = F.packed_weights(*ws, chunk, "cpu")
+        n, chunk_p = cmid // chunk, -(-chunk // 16) * 16
+        assert wp.dtype == torch.bfloat16 and f.dtype == torch.float32
+        assert wp.shape == (n, cout, chunk_p) and wp.is_contiguous()
+        assert torch.equal(wp[:, :, :chunk].transpose(1, 2)
+                           .reshape(cmid, cout), bl.w_proj)
+        assert not wp[:, :, chunk:].any()
+        assert f.shape == (n, 11, chunk) and f.is_contiguous()
+        ft = f.transpose(0, 1).reshape(11, cmid)
+        assert torch.equal(ft[:9], bl.w_dw)
+        assert torch.equal(ft[9], bl.b_dw.reshape(-1))
+        if has_expand:
+            cin_p = -(-cin // 16) * 16
+            assert we.dtype == torch.bfloat16
+            assert we.shape == (cmid, cin_p) and we.is_contiguous()
+            assert torch.equal(we[:, :cin].t(), bl.w_expand)
+            assert not we[:, cin:].any()
+            assert torch.equal(ft[10], bl.b_expand.reshape(-1))
+        else:
+            assert we is None and not ft[10].any()
+        assert F.packed_weights(*ws, chunk, "cpu") is \
+            F.packed_weights(*ws, chunk, "cpu")        # built once
+
+
+def test_packed_weights_follow_the_parameters():
+    """The packed layout is rebuilt with the block: after an in-place
+    update of a folded tensor, after a new parameter dict, and after an
+    in-place update of the block's own weights, the packed weights hold
+    the new values."""
+    def packed(bl, chunk=16):
+        return F.packed_weights(bl.w_expand, bl.b_expand, bl.w_dw, bl.b_dw,
+                                bl.w_proj, chunk, "cpu")
+
+    rng = np.random.RandomState(6)
+    folded = _folded(rng, "b", 8, 32, 16, True)
+    first = F.fused_block(folded, "b", True, 1, False)
+    we0, wp0, f0 = packed(first)
+    folded["b/project/weights"].mul_(2.0)
+    folded["b/depthwise/folded_bias"].add_(1.0)
+    second = F.fused_block(folded, "b", True, 1, False)
+    assert second is not first
+    we1, wp1, f1 = packed(second)
+    assert torch.equal(wp1, (wp0.float() * 2).to(torch.bfloat16))
+    assert torch.equal(f1[:, 9], f0[:, 9] + 1.0)
+    assert torch.equal(we1, we0)
+    new = {k: v.clone() * 2 for k, v in folded.items()}
+    third = F.fused_block(new, "b", True, 1, False)
+    assert third is not second
+    we2, wp2, f2 = packed(third)
+    assert torch.equal(we2, (we1.float() * 2).to(torch.bfloat16))
+    assert torch.equal(f2, f1 * 2)
+    third.w_dw.add_(1.0)
+    assert torch.equal(packed(third)[2][:, :9], f2[:, :9] + 1.0)
+
+
+def test_chunk_of_8_is_planned_and_packed():
+    """A mid width that 16 does not divide (the JAX kernels' block-0 test
+    case, 8 -> 8 -> 8 without expand) plans a chunk of 8, whose project
+    runs at k = 16: the packed project weights carry 8 zero columns per
+    chunk, and the launcher's checks take the block."""
+    tile_h, tile_w, chunk = F.stage_tile(8, 8, 8, 1, 1, False, 9, 9,
+                                         occupancy=_OCC)
+    assert chunk == 8 and (tile_h * tile_w) % 16 == 0
+    assert F.stage_tile(8, 24, 8, 1, 1, True, 9, 9,
+                        occupancy=_OCC)[2] == 8
+    rng = np.random.RandomState(7)
+    wt = _kernel_args(_weights(rng, 8, 8, 8, False), False, torch)
+    we, wp, f = F.pack_weights(*wt[:5], 8, "cpu")
+    assert we is None and wp.shape == (1, 8, 16) and f.shape == (1, 11, 8)
+    assert torch.equal(wp[0, :, :8].t(), wt[4].to(torch.bfloat16))
+    assert not wp[:, :, 8:].any()
+    # the smem sum rounds the chunk's bf16 rows to 16 (+ 8), as make_plan
+    # does: only the two f32 buffers of 11 x chunk are smaller than at 16
+    assert F.smem_bytes(8, 8, 1, 1, False, 1, 16, 8) == \
+        F.smem_bytes(8, 8, 1, 1, False, 1, 16, 16) - 2 * 11 * 8 * 4
+
+
+def test_launch_takes_a_mid_width_of_8(monkeypatch):
+    """Every check of ``launch`` passes a block whose mid width is 8; the
+    next step asks the built kernel for its occupancy."""
+    class Reached(Exception):
+        pass
+
+    def reached():
+        raise Reached
+
+    monkeypatch.setattr(F, "kernel_occupancy", reached)
+    rng = np.random.RandomState(8)
+    x = torch.zeros(2, 8, 9, 9, dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    wt = _kernel_args(_weights(rng, 8, 8, 8, False), False, torch)
+    with pytest.raises(Reached):
+        F.launch(x, *wt, stride=1, rate=1, residual=False)
+    wt = _kernel_args(_weights(rng, 8, 24, 8, True), True, torch)
+    with pytest.raises(Reached):
+        F.launch(x, *wt, stride=1, rate=1, residual=True)
 
 
 def test_fused_block_cache_follows_the_parameters():
