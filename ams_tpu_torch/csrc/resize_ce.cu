@@ -1,5 +1,5 @@
 // Fused align-corners bilinear upsample + masked softmax cross-entropy,
-// forward and backward, sm_90a.
+// loss and grid gradient in one pass, sm_90a.
 //
 // Replaces the Pallas TPU kernel ams_tpu/ops/fused_resize_ce.py::_make_kernel
 // (driven by _fused_parts there, wrapped in the fused_resize_ce custom_vjp).
@@ -15,40 +15,68 @@
 //                                                   g / max(sum v, 1))
 //
 // without writing the full-resolution logits or their cotangent (at the
-// server round's 10x19x256x512 each would be 100 MB).
-//
-// Design.  The TPU kernel runs a per-class pair of MXU matmuls per row tile
-// and carries the gradient across tiles in VMEM; neither carries over to a
-// GPU.  Here one block owns one output row (b, y):
-//   - it stages the two grid rows ylo[y], yhi[y] of every class in shared
-//     memory, then each thread lerps the 4 taps of each class for its
-//     pixels in the operation order of the port's models/resize.py
-//     (left + (right - left) * xw on both rows, then top + (bot - top) * yw);
-//     built with --fmad=false, the upsampled values equal the plain
-//     version's bit for bit;
-//   - the row's upsampled logits (C x W floats) stay in shared memory for
-//     the softmax: 39 KB at C=19, W=512; above 48 KB the launcher raises
-//     the block's dynamic shared-memory limit.
-// Forward: per-row partial sums of ce*v and v, then one block sums the
-// rows in a fixed order (in double) into (loss, total).
-// Backward, deterministic and separable, with no atomics:
-//   pass A (one block per row): G for the row in shared memory, then one
-//     thread per (class, gx) sums its contiguous range of x in order into
-//     h[b, k, y, gx] = sum_x G_k[y, x] C[x, gx];
-//   pass B (one thread per (b, k, gy, gx)): sums the rows y whose ylo or
-//     yhi is gy, in order: grad[b, k, gy, gx] = sum_y R[y, gy] h[b, k, y, gx].
-// So two runs give the same bits, which coord_desc_auto's quantile cut
-// needs (a selection on |delta| near a dense tie cluster).
+// server round's 10x19x256x512 each would be 100 MB).  A label outside
+// [0, C) gives CE 0 and no gradient; its weight still counts in sum v.
+// As JAX's _fwd does, one launch computes the loss and the gradient; the
+// autograd backward only scales the saved gradient.  A loss-only variant
+// of the same kernel serves calls that need no gradient.
 //
 // Bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s f32 without tensor cores),
 // reckoned from shapes, at the server round's B=10, C=19, 17x33 -> 256x512:
-//   forward reads 0.43 MB of grid, 5.2 MB of int32 labels and 5.2 MB of f32
-//   weights (~10.9 MB, 3.3 us); the separable lerp plus max/exp/sum is
-//   ~1.8e8 operations (2.7 us): bound by bytes.  The backward adds the
-//   softmax gradient and the transposed lerp, ~3.6e8 operations (5.4 us).
-// This first form repeats the horizontal lerp of both grid rows for every
-// pixel (9 unfused operations per pixel and class) and keeps one row per
-// block; it is not near the bound.  chip_smoke.py times it.
+//   reads 0.43 MB of grid, 5.2 MB of int32 labels and 5.2 MB of f32
+//   weights, writes 0.43 MB of gradient: ~11.3 MB, 3.4 us (10.9 MB and
+//   3.3 us for the loss alone).  The separable lerp plus max/exp/sum is
+//   ~1.8e8 operations (2.7 us); the softmax gradient and the transposed
+//   lerp add ~1.8e8 (5.5 us in all): loss+grad is bound by operations.
+//
+// Design.  The TPU kernel runs a per-class pair of MXU matmuls per row
+// tile and carries the gradient across tiles in VMEM; neither carries over
+// to a GPU.  Here:
+//   - Bands.  Output rows with one ylo form a band (contiguous, since ylo
+//     never decreases; empty when H < gh; one row where ylo == yhi).  All
+//     rows of a band lerp between the same two grid rows gy, min(gy+1,
+//     gh-1), so their horizontal lerps are shared.
+//   - Tiles.  A tile is a run of whole grid intervals: the x with xlo in
+//     [g0, g1); it touches grid columns g0 .. min(g1, gw-1).  The host
+//     packs intervals into tiles of at most `threads` columns.
+//   - One block per (b, band, tile), one thread per column x.  The thread
+//     lerps both grid rows horizontally for its column once per class, in
+//     registers (top, and bot - top), in the operation order of the port's
+//     models/resize.py: left + (right - left) * xw on both rows, then
+//     top + (bot - top) * yw per row.  Built with --fmad=false, the
+//     upsampled values equal the plain version's bit for bit.  Then it
+//     walks the band's rows in order: softmax over the classes in
+//     registers, CE into the loss sums, and G_k into two per-class sums,
+//     sum_y G_k (1 - yw) for the top grid row and sum_y G_k yw for the
+//     bottom one (the vertical half of R^T G C^T, in registers for a
+//     compile-time bound on C: 8, 16, 24 or 32 classes).  Above 32 classes
+//     a variant of the same kernel recomputes each class's two horizontal
+//     lerps from the (L1-cached) grid where it needs them and keeps the
+//     two sums in the thread's own column of shared memory, in the same
+//     order, so it gives the same bits; its shared memory grows with C
+//     (2C rows of threads + 1, plus the partial), which bounds C at 149
+//     to 209 at 128 threads, by the tile's grid columns.
+//   - The x half.  The block writes its columns' sums to shared memory as
+//     2C rows of threads + 1 floats (odd stride, so neighbouring classes of
+//     one column fall in distinct banks), then one thread per (class, side,
+//     grid column) contracts its x range in order into the tile's partial:
+//     at most 2 x C x (g1 - g0 + 1) floats per block.  An interval wider
+//     than the block is walked in chunks of `threads` columns, each chunk
+//     adding to the same partial in order.
+//   - Finish.  One launch sums, in a fixed order, each grid cell's
+//     contributions (band gy top, band gy-1 bottom, band gh-1 bottom at the
+//     last grid row; within each, the tile to the left first), and in one
+//     more block sums the blocks' (sum ce v, sum v) in double into (loss,
+//     total).
+// So a training iteration costs two launches and one pass over the labels
+// and weights, with the upsample and softmax computed once; the
+// horizontal lerp runs once per band column and class, not once per
+// pixel (3 operations per pixel and class where 9 were); the x contraction
+// runs in parallel over (class, side, grid column) without bank conflicts,
+// and the partials it writes are 0.93 MB at the server shape, with no
+// scratch of B x C x H x gw floats; no buffer grows with W, so any width
+// is taken.  No atomics and fixed summation orders: two runs give the
+// same bits, which coord_desc_auto's quantile cut needs.
 //
 // Plain C interface (no PyTorch header): the caller passes raw device
 // pointers and PyTorch's current stream, and reads cudaGetLastError() back
@@ -59,46 +87,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kReduceThreads = 1024;
-
-// Stage the block's two grid rows of every class in shared memory: for
-// class c, grid row ylo[y] at rows[(2c) * gw] and row yhi[y] at
-// rows[(2c + 1) * gw].
-__device__ __forceinline__ void stage_rows(const float* __restrict__ grid_b,
-                                           int C, int gh, int gw, int y0,
-                                           int y1, float* rows) {
-    const int n = 2 * C * gw;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int gx = i % gw;
-        const int r = (i / gw) & 1;
-        const int c = i / (2 * gw);
-        rows[i] = grid_b[((long long)c * gh + (r ? y1 : y0)) * gw + gx];
-    }
-}
-
-// Upsampled logits of pixel x for every class into u[c * W + x]; returns
-// their max.
-__device__ __forceinline__ float lerp_pixel(const float* rows, int C, int gw,
-                                            int W, int x0, int x1, float wx,
-                                            float wy, float* u, int x) {
-    float m = -INFINITY;
-    for (int c = 0; c < C; ++c) {
-        const float* top_row = rows + (2 * c) * gw;
-        const float* bot_row = top_row + gw;
-        const float tl = top_row[x0], tr = top_row[x1];
-        const float bl = bot_row[x0], br = bot_row[x1];
-        const float top = tl + (tr - tl) * wx;
-        const float bot = bl + (br - bl) * wx;
-        const float v = top + (bot - top) * wy;
-        u[c * W + x] = v;
-        m = fmaxf(m, v);
-    }
-    return m;
-}
+constexpr int kMaxThreads = 128;     // columns (threads) of a band block
+constexpr int kFinishThreads = 256;
 
 // Fixed-order tree sum of one value per thread over the block; the result
-// is valid in thread 0.  scratch holds blockDim.x floats.
+// is valid in every thread.  blockDim.x is a power of two; scratch holds
+// blockDim.x values.
 template <typename T>
 __device__ __forceinline__ T block_sum(T v, T* scratch) {
     scratch[threadIdx.x] = v;
@@ -110,157 +104,275 @@ __device__ __forceinline__ T block_sum(T v, T* scratch) {
     return scratch[0];
 }
 
-// One block per output row (b, y): partial[2 * row] = sum ce * v,
-// partial[2 * row + 1] = sum v.
-__global__ void resize_ce_fwd_rows(const float* __restrict__ grid,
-                                   const int* __restrict__ labels,
-                                   const float* __restrict__ weights,
-                                   const int* __restrict__ ylo,
-                                   const int* __restrict__ yhi,
-                                   const float* __restrict__ yw,
-                                   const int* __restrict__ xlo,
-                                   const int* __restrict__ xhi,
-                                   const float* __restrict__ xw,
-                                   float* __restrict__ partial,
-                                   int C, int gh, int gw, int H, int W) {
+// The two horizontal lerps of one class at column x, in the operation order
+// of models/resize.py: top = left + (right - left) xw on grid row r0, and
+// d = (the same on r1) - top, so that top + d yw is the upsampled value.
+__device__ __forceinline__ void lerp_rows(const float* r0, const float* r1,
+                                          int x0, int x1, float wx,
+                                          float& top, float& d) {
+    const float tl = __ldg(r0 + x0), tr = __ldg(r0 + x1);
+    const float bl = __ldg(r1 + x0), br = __ldg(r1 + x1);
+    top = tl + (tr - tl) * wx;
+    d = (bl + (br - bl) * wx) - top;
+}
+
+// Dynamic shared memory of a band block, in floats: the block sum's
+// scratch; with the gradient also the chunk's xw, its column sums (2C rows
+// of threads + 1) and the tile's partial (2C x ncol_max).
+size_t band_smem_floats(int C, int threads, int ncol_max, bool grad) {
+    size_t n = threads;
+    if (grad)
+        n += threads + (size_t)2 * C * (threads + 1) +
+             (size_t)2 * C * ncol_max;
+    return n;
+}
+
+// One block per (b, band, tile); see the header.  bands: [start, end) rows
+// of each grid row's band; tiles: (g0, g1, xs, xe, poff) per tile, x in
+// [xs, xe) and its partial's first column poff; xr: per grid column
+// [start, end) of the x with xlo == gx, then of those with xhi == gx.
+// lpart[2 blk] = sum ce v, lpart[2 blk + 1] = sum v; with GRAD,
+// part[((b gh + band) 2 + side) C + k][poff + j] = the tile's contribution
+// to grid row (band + side, clamped) and column g0 + j.  MAXC: the bound on
+// C of the classes held in registers, or 0 for any C (see the header).
+template <int MAXC, bool GRAD>
+__global__ void __launch_bounds__(kMaxThreads)
+resize_ce_band(const float* __restrict__ grid,
+               const int* __restrict__ labels,
+               const float* __restrict__ weights,
+               const float* __restrict__ yw,
+               const int* __restrict__ xlo,
+               const int* __restrict__ xhi,
+               const float* __restrict__ xw,
+               const int* __restrict__ bands,
+               const int* __restrict__ tiles,
+               const int* __restrict__ xr,
+               float* __restrict__ lpart,
+               float* __restrict__ part,
+               int C, int gh, int gw, int H, int W, int n_tiles,
+               int sumcol) {
     extern __shared__ float smem[];
-    float* rows = smem;                 // 2 * C * gw
-    float* u = rows + 2 * C * gw;       // C * W
-    __shared__ float red[kThreads];
+    const int T = blockDim.x;
+    const int S = T + 1;                 // odd row stride of the column sums
+    const int tid = threadIdx.x;
+    constexpr int R = MAXC > 0 ? MAXC : 1;   // register arrays' length
+    float* red = smem;                   // T
+    float* sxw = red + T;                // T            (GRAD)
+    float* sacc = sxw + T;               // 2C rows of S  (GRAD)
 
-    const int row = blockIdx.x;         // b * H + y
-    const int b = row / H, y = row % H;
-    stage_rows(grid + (long long)b * C * gh * gw, C, gh, gw, ylo[y], yhi[y],
-               rows);
-    __syncthreads();
+    const int blk = blockIdx.x;
+    const int t = blk % n_tiles;
+    const int band = (blk / n_tiles) % gh;
+    const int b = blk / (n_tiles * gh);
+    const int* tl5 = tiles + 5 * t;
+    const int g0 = tl5[0], g1 = tl5[1], xs = tl5[2], xe = tl5[3];
+    const int ncol = min(g1, gw - 1) - g0 + 1;
+    const int n_items = 2 * C * ncol;
+    float* spart = sacc + 2 * C * S;     // n_items       (GRAD)
+    const int ys = bands[2 * band], ye = bands[2 * band + 1];
+    const float* row_top = grid + ((long long)b * C * gh + band) * gw;
+    const float* row_bot = row_top + (min(band + 1, gh - 1) - band) * gw;
+    const long long plane = (long long)gh * gw;
+    const long long img = (long long)b * H * W;
 
-    const float wy = yw[y];
-    const long long base = (long long)row * W;
+    if (GRAD)
+        for (int i = tid; i < n_items; i += T) spart[i] = 0.f;
+
     float num = 0.f, den = 0.f;
-    for (int x = threadIdx.x; x < W; x += blockDim.x) {
-        const float m = lerp_pixel(rows, C, gw, W, xlo[x], xhi[x], xw[x], wy,
-                                   u, x);
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) s += expf(u[c * W + x] - m);
-        const int lab = labels[base + x];
-        const float v = weights[base + x];
-        // a label outside [0, C) has an all-zero one-hot row: ce = 0
-        const float ce = (lab >= 0 && lab < C)
-                             ? logf(s) - (u[lab * W + x] - m) : 0.f;
-        num += ce * v;
-        den += v;
+    for (int cx0 = xs; cx0 < xe; cx0 += T) {
+        const int cx1 = min(cx0 + T, xe);
+        const int x = cx0 + tid;
+        float at[R], ab[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) at[k] = ab[k] = 0.f;
+        if (GRAD && MAXC == 0)       // the sums live in the thread's column
+            for (int k = 0; k < 2 * C; ++k) sacc[k * S + tid] = 0.f;
+        float wx = 0.f;
+        if (x < cx1 && ys < ye) {
+            const int x0 = xlo[x], x1 = xhi[x];
+            wx = xw[x];
+            float top[R], d[R], e[R];
+#pragma unroll
+            for (int k = 0; k < MAXC; ++k)
+                if (k < C)
+                    lerp_rows(row_top + k * plane, row_bot + k * plane, x0,
+                              x1, wx, top[k], d[k]);
+            for (int y = ys; y < ye; ++y) {
+                const float wy = yw[y];
+                const long long p = img + (long long)y * W + x;
+                const int lab = labels[p];
+                const float v = weights[p];
+                float m = -INFINITY, s = 0.f, ulab = 0.f;
+                if (MAXC > 0) {
+#pragma unroll
+                    for (int k = 0; k < MAXC; ++k) {
+                        if (k < C) {
+                            e[k] = top[k] + d[k] * wy;
+                            m = fmaxf(m, e[k]);
+                        }
+                    }
+#pragma unroll
+                    for (int k = 0; k < MAXC; ++k) {
+                        if (k < C) {
+                            if (k == lab) ulab = e[k];
+                            e[k] = expf(e[k] - m);
+                            s += e[k];
+                        }
+                    }
+                } else {
+                    for (int k = 0; k < C; ++k) {
+                        float t0, d0;
+                        lerp_rows(row_top + k * plane, row_bot + k * plane,
+                                  x0, x1, wx, t0, d0);
+                        m = fmaxf(m, t0 + d0 * wy);
+                    }
+                    for (int k = 0; k < C; ++k) {
+                        float t0, d0;
+                        lerp_rows(row_top + k * plane, row_bot + k * plane,
+                                  x0, x1, wx, t0, d0);
+                        const float u = t0 + d0 * wy;
+                        if (k == lab) ulab = u;
+                        s += expf(u - m);
+                    }
+                }
+                const bool in_range = lab >= 0 && lab < C;
+                num += (in_range ? logf(s) - (ulab - m) : 0.f) * v;
+                den += v;
+                if (GRAD) {
+                    const float inv = 1.f / s;
+                    const float vg = in_range ? v : 0.f;
+                    const float w_top = 1.f - wy;
+                    if (MAXC > 0) {
+#pragma unroll
+                        for (int k = 0; k < MAXC; ++k) {
+                            if (k < C) {
+                                const float g =
+                                    (e[k] * inv - (k == lab ? 1.f : 0.f))
+                                    * vg;
+                                at[k] += g * w_top;
+                                ab[k] += g * wy;
+                            }
+                        }
+                    } else {
+                        for (int k = 0; k < C; ++k) {
+                            float t0, d0;
+                            lerp_rows(row_top + k * plane,
+                                      row_bot + k * plane, x0, x1, wx, t0,
+                                      d0);
+                            const float g =
+                                (expf(t0 + d0 * wy - m) * inv
+                                 - (k == lab ? 1.f : 0.f)) * vg;
+                            sacc[k * S + tid] += g * w_top;
+                            sacc[(C + k) * S + tid] += g * wy;
+                        }
+                    }
+                }
+            }
+        }
+        if (GRAD) {
+            sxw[tid] = wx;
+#pragma unroll
+            for (int k = 0; k < MAXC; ++k) {
+                if (k < C) {
+                    sacc[k * S + tid] = at[k];
+                    sacc[(C + k) * S + tid] = ab[k];
+                }
+            }
+            __syncthreads();
+            // neighbouring threads take neighbouring classes of one grid
+            // column and side; each sums its x range in order
+            for (int i = tid; i < n_items; i += T) {
+                const int k = i % C, side = (i / C) & 1, j = i / (2 * C);
+                const int* r = xr + 4 * (g0 + j);
+                const float* col = sacc + (side * C + k) * S;
+                float acc = 0.f;
+                for (int xx = max(r[0], cx0); xx < min(r[1], cx1); ++xx)
+                    acc += col[xx - cx0] * (1.f - sxw[xx - cx0]);
+                for (int xx = max(r[2], cx0); xx < min(r[3], cx1); ++xx)
+                    acc += col[xx - cx0] * sxw[xx - cx0];
+                spart[i] += acc;
+            }
+            __syncthreads();
+        }
+    }
+
+    if (GRAD) {
+        const int poff = tl5[4];
+        for (int i = tid; i < n_items; i += T) {
+            const int k = i % C, side = (i / C) & 1, j = i / (2 * C);
+            const long long row = ((long long)(b * gh + band) * 2 + side) * C
+                                  + k;
+            part[row * sumcol + poff + j] = spart[i];
+        }
     }
     num = block_sum(num, red);
-    if (threadIdx.x == 0) partial[2 * row] = num;
+    if (tid == 0) lpart[2 * blk] = num;
     __syncthreads();
     den = block_sum(den, red);
-    if (threadIdx.x == 0) partial[2 * row + 1] = den;
+    if (tid == 0) lpart[2 * blk + 1] = den;
 }
 
-// One block: out[0] = loss, out[1] = total = max(sum v, 1), summing the
-// rows' partials in a fixed order in double.
-__global__ void resize_ce_fwd_finish(const float* __restrict__ partial,
-                                     int n_rows, float* __restrict__ out) {
-    __shared__ double red[kReduceThreads];
-    double num = 0.0, den = 0.0;
-    for (int i = threadIdx.x; i < n_rows; i += blockDim.x) {
-        num += (double)partial[2 * i];
-        den += (double)partial[2 * i + 1];
-    }
-    num = block_sum(num, red);
-    __syncthreads();
-    den = block_sum(den, red);
-    if (threadIdx.x == 0) {
-        const float total = fmaxf((float)den, 1.f);
-        out[0] = (float)num / total;
-        out[1] = total;
-    }
-}
-
-// Backward pass A, one block per output row (b, y):
-// h[b, k, y, gx] = sum over x of G_k[y, x] C[x, gx], in x order.
-// xr[4 gx .. 4 gx + 3] = [start, end) of the x with xlo == gx, then
-// [start, end) of the x with xhi == gx.
-__global__ void resize_ce_bwd_rows(const float* __restrict__ grid,
-                                   const int* __restrict__ labels,
-                                   const float* __restrict__ weights,
-                                   const int* __restrict__ ylo,
-                                   const int* __restrict__ yhi,
-                                   const float* __restrict__ yw,
-                                   const int* __restrict__ xlo,
-                                   const int* __restrict__ xhi,
-                                   const float* __restrict__ xw,
-                                   const int* __restrict__ xr,
-                                   float* __restrict__ h,
-                                   int C, int gh, int gw, int H, int W) {
-    extern __shared__ float smem[];
-    float* rows = smem;
-    float* u = rows + 2 * C * gw;
-
-    const int row = blockIdx.x;
-    const int b = row / H, y = row % H;
-    stage_rows(grid + (long long)b * C * gh * gw, C, gh, gw, ylo[y], yhi[y],
-               rows);
-    __syncthreads();
-
-    const float wy = yw[y];
-    const long long base = (long long)row * W;
-    for (int x = threadIdx.x; x < W; x += blockDim.x) {
-        const float m = lerp_pixel(rows, C, gw, W, xlo[x], xhi[x], xw[x], wy,
-                                   u, x);
-        float s = 0.f;
-        for (int c = 0; c < C; ++c) {
-            const float e = expf(u[c * W + x] - m);
-            u[c * W + x] = e;
-            s += e;
+// Blocks 0 .. n_cell_blocks - 1: one thread per grid cell (b, k, gy, gx)
+// sums its contributions in a fixed order (see the header).  Block
+// n_cell_blocks: out[0] = loss, out[1] = total = max(sum v, 1), summing
+// the band blocks' partials in order in double.
+__global__ void resize_ce_finish(const float* __restrict__ lpart,
+                                 int n_band_blocks,
+                                 const float* __restrict__ part,
+                                 const int* __restrict__ tiles,
+                                 const int* __restrict__ tile_of,
+                                 float* __restrict__ grad,
+                                 float* __restrict__ out,
+                                 int B, int C, int gh, int gw, int sumcol,
+                                 int n_cell_blocks) {
+    if ((int)blockIdx.x == n_cell_blocks) {
+        __shared__ double red[kFinishThreads];
+        double num = 0.0, den = 0.0;
+        for (int i = threadIdx.x; i < n_band_blocks; i += blockDim.x) {
+            num += (double)lpart[2 * i];
+            den += (double)lpart[2 * i + 1];
         }
-        const float inv = 1.f / s;
-        const int lab = labels[base + x];
-        const bool in_range = lab >= 0 && lab < C;
-        const float v = in_range ? weights[base + x] : 0.f;
-        for (int c = 0; c < C; ++c) {
-            const float onehot = (c == lab) ? 1.f : 0.f;
-            u[c * W + x] = (u[c * W + x] * inv - onehot) * v;
+        num = block_sum(num, red);
+        __syncthreads();
+        den = block_sum(den, red);
+        if (threadIdx.x == 0) {
+            const float total = fmaxf((float)den, 1.f);
+            out[0] = (float)num / total;
+            out[1] = total;
         }
+        return;
     }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < C * gw; i += blockDim.x) {
-        const int c = i / gw, gx = i % gw;
-        const float* g = u + c * W;
-        float acc = 0.f;
-        for (int x = xr[4 * gx]; x < xr[4 * gx + 1]; ++x)
-            acc += g[x] * (1.f - xw[x]);
-        for (int x = xr[4 * gx + 2]; x < xr[4 * gx + 3]; ++x)
-            acc += g[x] * xw[x];
-        h[(((long long)b * C + c) * H + y) * gw + gx] = acc;
-    }
-}
-
-// Backward pass B, one thread per (b, k, gy, gx):
-// grad[b, k, gy, gx] = sum over y of R[y, gy] h[b, k, y, gx], in y order.
-__global__ void resize_ce_bwd_cols(const float* __restrict__ h,
-                                   const float* __restrict__ yw,
-                                   const int* __restrict__ yr,
-                                   float* __restrict__ grad,
-                                   int BC, int gh, int gw, int H) {
-    const long long total = (long long)BC * gh * gw;
+    const long long n = (long long)B * C * gh * gw;
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= total) return;
+    if (p >= n) return;
     const int gx = (int)(p % gw);
     const int gy = (int)((p / gw) % gh);
-    const long long bc = p / ((long long)gw * gh);
-    const float* hb = h + bc * H * gw + gx;
+    const long long bk = p / ((long long)gw * gh);
+    const int k = (int)(bk % C), b = (int)(bk / C);
+    const int t = tile_of[gx];
+    const int* tl5 = tiles + 5 * t;
+    const int col1 = tl5[4] + gx - tl5[0];
+    // the tile to the left ends on this column (its last partial column)
+    const int col0 = (gx == tl5[0] && t > 0)
+                         ? tl5[-1] + tl5[-4] - tl5[-5] : -1;
     float acc = 0.f;
-    for (int y = yr[4 * gy]; y < yr[4 * gy + 1]; ++y)
-        acc += hb[(long long)y * gw] * (1.f - yw[y]);
-    for (int y = yr[4 * gy + 2]; y < yr[4 * gy + 3]; ++y)
-        acc += hb[(long long)y * gw] * yw[y];
+    for (int q = 0; q < 3; ++q) {
+        int band, side;
+        if (q == 0) {
+            band = gy, side = 0;             // rows below grid row gy
+        } else if (q == 1) {
+            if (gy == 0) continue;
+            band = gy - 1, side = 1;         // rows above it
+        } else {
+            if (gy != gh - 1) continue;
+            band = gy, side = 1;             // ylo == yhi == gh - 1
+        }
+        const float* row =
+            part + (((long long)(b * gh + band) * 2 + side) * C + k) * sumcol;
+        if (col0 >= 0) acc += row[col0];
+        acc += row[col1];
+    }
     grad[p] = acc;
-}
-
-size_t row_smem_bytes(int C, int gw, int W) {
-    return sizeof(float) * ((size_t)2 * C * gw + (size_t)C * W);
 }
 
 template <typename Kernel>
@@ -271,58 +383,72 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                                 (int)bytes);
 }
 
-}  // namespace
-
-// partial: 2 * B * H floats of scratch; out: 2 floats (loss, total).
-extern "C" int resize_ce_fwd_launch(const float* grid, const int* labels,
-                                    const float* weights,
-                                    const int* ylo, const int* yhi,
-                                    const float* yw,
-                                    const int* xlo, const int* xhi,
-                                    const float* xw,
-                                    float* partial, float* out,
-                                    int B, int C, int gh, int gw,
-                                    int H, int W, void* stream) {
-    const cudaStream_t s = (cudaStream_t)stream;
-    const int n_rows = B * H;
-    const size_t smem = row_smem_bytes(C, gw, W);
-    cudaError_t err = allow_smem(resize_ce_fwd_rows, smem);
-    if (err != cudaSuccess) return (int)err;
-    resize_ce_fwd_rows<<<n_rows, kThreads, smem, s>>>(
-        grid, labels, weights, ylo, yhi, yw, xlo, xhi, xw, partial, C, gh, gw,
-        H, W);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    resize_ce_fwd_finish<<<1, kReduceThreads, 0, s>>>(partial, n_rows, out);
-    return (int)cudaGetLastError();
+template <int MAXC>
+cudaError_t launch_band(bool want_grad, int blocks, int threads, size_t smem,
+                        cudaStream_t s, const float* grid, const int* labels,
+                        const float* weights, const float* yw,
+                        const int* xlo, const int* xhi, const float* xw,
+                        const int* bands, const int* tiles, const int* xr,
+                        float* lpart, float* part, int C, int gh, int gw,
+                        int H, int W, int n_tiles, int sumcol) {
+    auto kernel = want_grad ? resize_ce_band<MAXC, true>
+                            : resize_ce_band<MAXC, false>;
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, threads, smem, s>>>(grid, labels, weights, yw, xlo, xhi,
+                                         xw, bands, tiles, xr, lpart, part, C,
+                                         gh, gw, H, W, n_tiles, sumcol);
+    return cudaGetLastError();
 }
 
-// h: B * C * H * gw floats of scratch; grad: B * C * gh * gw floats, the
-// unnormalized grid gradient.  yr: 4 * gh ints, xr: 4 * gw ints (see
-// resize_ce_bwd_rows).
-extern "C" int resize_ce_bwd_launch(const float* grid, const int* labels,
-                                    const float* weights,
-                                    const int* ylo, const int* yhi,
-                                    const float* yw,
-                                    const int* xlo, const int* xhi,
-                                    const float* xw,
-                                    const int* yr, const int* xr,
-                                    float* h, float* grad,
-                                    int B, int C, int gh, int gw,
-                                    int H, int W, void* stream) {
+}  // namespace
+
+// Dynamic shared memory of one band block, in bytes.
+extern "C" size_t resize_ce_smem_bytes(int C, int threads, int ncol_max,
+                                       int want_grad) {
+    return sizeof(float) * band_smem_floats(C, threads, ncol_max,
+                                            want_grad != 0);
+}
+
+// Loss, and with grad != NULL the unnormalized grid gradient (B, C, gh,
+// gw).  Tables as resize_ce_band reads them (built by the host's plan);
+// lpart: 2 * B * gh * n_tiles floats of scratch; part: B * gh * 2 * C *
+// sumcol floats of scratch (unused without grad); out: 2 floats (loss,
+// total).  threads: a power of two, at most 128.  A block that needs more
+// shared memory than the card gives one returns cudaErrorInvalidValue.
+extern "C" int resize_ce_launch(const float* grid, const int* labels,
+                                const float* weights, const float* yw,
+                                const int* xlo, const int* xhi,
+                                const float* xw, const int* bands,
+                                const int* tiles, const int* tile_of,
+                                const int* xr, float* lpart, float* part,
+                                float* grad, float* out,
+                                int B, int C, int gh, int gw, int H, int W,
+                                int n_tiles, int ncol_max, int sumcol,
+                                int threads, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const size_t smem = row_smem_bytes(C, gw, W);
-    cudaError_t err = allow_smem(resize_ce_bwd_rows, smem);
+    if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)))
+        return (int)cudaErrorInvalidValue;
+    const bool want_grad = grad != nullptr;
+    const int blocks = B * gh * n_tiles;
+    const size_t smem = resize_ce_smem_bytes(C, threads, ncol_max, want_grad);
+    cudaError_t err;
+#define RESIZE_CE_BAND(MAXC)                                                 \
+    launch_band<MAXC>(want_grad, blocks, threads, smem, s, grid, labels,     \
+                      weights, yw, xlo, xhi, xw, bands, tiles, xr, lpart,    \
+                      part, C, gh, gw, H, W, n_tiles, sumcol)
+    if (C <= 8) err = RESIZE_CE_BAND(8);
+    else if (C <= 16) err = RESIZE_CE_BAND(16);
+    else if (C <= 24) err = RESIZE_CE_BAND(24);
+    else if (C <= 32) err = RESIZE_CE_BAND(32);
+    else err = RESIZE_CE_BAND(0);
+#undef RESIZE_CE_BAND
     if (err != cudaSuccess) return (int)err;
-    resize_ce_bwd_rows<<<B * H, kThreads, smem, s>>>(
-        grid, labels, weights, ylo, yhi, yw, xlo, xhi, xw, xr, h, C, gh, gw,
-        H, W);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long total = (long long)B * C * gh * gw;
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    resize_ce_bwd_cols<<<(unsigned)blocks, threads, 0, s>>>(
-        h, yw, yr, grad, B * C, gh, gw, H);
+    const long long cells = want_grad ? (long long)B * C * gh * gw : 0;
+    const int cell_blocks = (int)((cells + kFinishThreads - 1)
+                                  / kFinishThreads);
+    resize_ce_finish<<<cell_blocks + 1, kFinishThreads, 0, s>>>(
+        lpart, blocks, part, tiles, tile_of, grad, out, B, C, gh, gw, sumcol,
+        cell_blocks);
     return (int)cudaGetLastError();
 }

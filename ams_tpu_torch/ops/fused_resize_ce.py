@@ -4,21 +4,26 @@ Counterpart of ``ams_tpu/ops/fused_resize_ce.py``.  The distillation loss
 is the CE between the student's upsampled logits and the teacher's labels
 at full resolution.  In plain tensor ops the full-resolution logits and
 their cotangent hit device memory (10x19x256x512 f32 = 100 MB each per
-training iteration); the kernels in ``csrc/resize_ce.cu`` read only the
-grid logits, labels and weights, and write a scalar loss (forward) or the
-grid-logit gradient (backward).
+training iteration); the kernel in ``csrc/resize_ce.cu`` reads only the
+grid logits, labels and weights, and writes the scalar loss and, in the
+same launch, the grid-logit gradient.
 
-``fused_resize_ce`` is the wrapper, a ``torch.autograd.Function`` on the
-card: a CPU tensor goes to the plain version, whose gradient autograd
-supplies; a CUDA tensor launches the kernels, and nothing falls back from
-one to the other.  ``resize_ce_plain`` is the plain version, the CPU path
-and the kernels' oracle on the card.
+``fused_resize_ce`` is the wrapper.  A CPU tensor goes to the plain
+version, whose gradient autograd supplies.  A CUDA tensor launches the
+kernel, and nothing falls back from one to the other: under grad, with a
+grid that needs a gradient, the forward computes the loss and the
+gradient in one launch (``resize_ce_loss_grad``) and the backward only
+scales it, as JAX's ``_fwd``/``_bwd`` do; otherwise the loss-only variant
+runs (``resize_ce_loss``).  ``resize_ce_plan`` cuts a shape into the
+kernel's blocks.  ``resize_ce_plain`` is the plain version, the CPU path
+and the kernel's oracle on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,8 +34,8 @@ from ams_tpu_torch.ops import build
 SOURCE = "ams_tpu_torch/csrc/resize_ce.cu"
 REPLACES = ("ams_tpu/ops/fused_resize_ce.py:37 (_make_kernel; custom_vjp "
             "fused_resize_ce :161, _fwd :175, _bwd :184)")
-# Shared memory a block may use on Hopper, less the kernel's static arrays.
-_SMEM_LIMIT = 232448 - 8192
+_MAX_THREADS = 128
+_MAX_TILE_INTERVALS = 64
 
 
 def resize_ce_plain(grid: torch.Tensor, labels: torch.Tensor,
@@ -48,106 +53,162 @@ def resize_ce_plain(grid: torch.Tensor, labels: torch.Tensor,
     return torch.sum(ce * w) / torch.clamp(torch.sum(w), min=1.0)
 
 
-def _ranges(lo: np.ndarray, hi: np.ndarray, n_in: int) -> np.ndarray:
-    """(4 * n_in,) int32: for each input index g, [start, end) of the
-    outputs whose ``lo`` is g, then [start, end) of those whose ``hi`` is
-    g.  Both tables are non-decreasing, so each set is contiguous."""
-    g = np.arange(n_in)
-    out = np.stack([np.searchsorted(lo, g, "left"),
-                    np.searchsorted(lo, g, "right"),
-                    np.searchsorted(hi, g, "left"),
-                    np.searchsorted(hi, g, "right")], axis=1)
-    return out.astype(np.int32).reshape(-1)
+class Plan(NamedTuple):
+    """How the kernel cuts one (gh, gw) -> (h, w) shape into blocks: one
+    block per (image, band, tile), one thread per column of a tile.
+
+    bands: (gh, 2) [start, end) of the output rows whose ``ylo`` is gy (the
+    band of grid row gy; empty when h < gh).  tiles: (n_tiles, 5) rows
+    (g0, g1, xs, xe, poff): the tile's grid intervals [g0, g1), its columns
+    [xs, xe) (the x whose ``xlo`` lies in [g0, g1)), and the first column
+    of its gradient partial.  A tile touches grid columns g0 .. min(g1,
+    gw - 1), ``ncol`` of them; column g1 is shared with the next tile.
+    tile_of: (gw,) the tile whose intervals hold each grid column.  xr:
+    (gw, 4) [start, end) of the x whose ``xlo`` is gx, then of those whose
+    ``xhi`` is gx.  sumcol: the partial columns of one (band, side, class),
+    the sum of the tiles' ``ncol``."""
+
+    threads: int
+    bands: np.ndarray
+    tiles: np.ndarray
+    tile_of: np.ndarray
+    xr: np.ndarray
+    ncol_max: int
+    sumcol: int
+
+    def blocks(self, b: int) -> int:
+        return b * len(self.bands) * len(self.tiles)
+
+@functools.lru_cache(maxsize=None)
+def resize_ce_plan(gh: int, gw: int, h: int, w: int) -> Plan:
+    """The kernel's blocks and tables for one shape (see ``Plan``).  Tiles
+    pack whole grid intervals greedily up to ``threads`` columns and
+    ``_MAX_TILE_INTERVALS`` intervals; an interval wider than the block
+    makes a tile of its own, which the block walks in chunks."""
+    ylo, _, _ = _lerp_weights(gh, h)
+    xlo, xhi, _ = _lerp_weights(gw, w)
+    threads = min(_MAX_THREADS, max(32, 1 << (w - 1).bit_length()))
+    counts = np.bincount(xlo, minlength=gw)
+    starts, width = [0], 0
+    for g in range(gw):
+        if g > starts[-1] and (width + counts[g] > threads
+                               or g - starts[-1] == _MAX_TILE_INTERVALS):
+            starts.append(g)
+            width = 0
+        width += counts[g]
+    g0 = np.array(starts)
+    g1 = np.append(g0[1:], gw)
+    ncol = np.minimum(g1, gw - 1) - g0 + 1
+    poff = np.concatenate([[0], np.cumsum(ncol)[:-1]])
+    tiles = np.stack([g0, g1, np.searchsorted(xlo, g0, "left"),
+                      np.searchsorted(xlo, g1, "left"), poff], axis=1)
+    gy, gx = np.arange(gh), np.arange(gw)
+    bands = np.stack([np.searchsorted(ylo, gy, "left"),
+                      np.searchsorted(ylo, gy, "right")], axis=1)
+    xr = np.stack([np.searchsorted(xlo, gx, "left"),
+                   np.searchsorted(xlo, gx, "right"),
+                   np.searchsorted(xhi, gx, "left"),
+                   np.searchsorted(xhi, gx, "right")], axis=1)
+    tile_of = np.searchsorted(g0, gx, "right") - 1
+    i32 = functools.partial(np.ascontiguousarray, dtype=np.int32)
+    return Plan(threads, i32(bands), i32(tiles), i32(tile_of), i32(xr),
+                int(ncol.max()), int(ncol.sum()))
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(gh: int, gw: int, h: int, w: int, device: torch.device):
-    """Device copies of the host-built lerp tables and their inverse
-    ranges, one upload per shape: (ylo, yhi, yw, xlo, xhi, xw, yr, xr)."""
-    ylo, yhi, yw = _lerp_weights(gh, h)
+    """Device copies of the lerp tables and the plan's tables, one upload
+    per shape: (yw, xlo, xhi, xw, bands, tiles, tile_of, xr)."""
+    _, _, yw = _lerp_weights(gh, h)
     xlo, xhi, xw = _lerp_weights(gw, w)
-    host = (ylo, yhi, yw, xlo, xhi, xw, _ranges(ylo, yhi, gh),
-            _ranges(xlo, xhi, gw))
+    plan = resize_ce_plan(gh, gw, h, w)
+    host = (yw, xlo, xhi, xw, plan.bands, plan.tiles, plan.tile_of, plan.xr)
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                      for a in host)
 
 
-def _function(name, n_ptr):
-    fn = getattr(build.load("resize_ce"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def library():
+    """The built kernel, its entry points typed: ``resize_ce_launch`` and
+    ``resize_ce_smem_bytes`` (a band block's shared memory, in bytes)."""
+    lib = build.load("resize_ce")
+    if lib.resize_ce_launch.argtypes is None:
+        lib.resize_ce_launch.argtypes = [ctypes.c_void_p] * 15 \
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.resize_ce_launch.restype = ctypes.c_int
+        lib.resize_ce_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.resize_ce_smem_bytes.restype = ctypes.c_size_t
+    return lib
 
 
-def _check(err, name):
+def _launch(grid, labels, weights, out_hw, want_grad):
+    b, c, gh, gw = grid.shape
+    h, w = int(out_hw[0]), int(out_hw[1])
+    plan = resize_ce_plan(gh, gw, h, w)
+    tables = _tables(gh, gw, h, w, grid.device)
+    dev = grid.device
+    lpart = torch.empty(2 * plan.blocks(b), dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    part = grad = None
+    if want_grad:
+        part = torch.empty(b * gh * 2 * c * plan.sumcol, dtype=torch.float32,
+                           device=dev)
+        grad = torch.empty_like(grid)
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.resize_ce_launch(
+            grid.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+            *(t.data_ptr() for t in tables), lpart.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if grad is None else grad.data_ptr(), out.data_ptr(),
+            b, c, gh, gw, h, w, len(plan.tiles), plan.ncol_max, plan.sumcol,
+            plan.threads, stream)
     if err != 0:
-        raise RuntimeError("%s kernel launch failed: CUDA error %d"
-                           % (name, err))
+        raise RuntimeError(
+            "resize_ce kernel launch failed: CUDA error %d (grid %s -> %dx%d, "
+            "%d B of shared memory per block)"
+            % (err, tuple(grid.shape), h, w, lib.resize_ce_smem_bytes(
+                c, plan.threads, plan.ncol_max, int(want_grad))))
+    return out[0], out[1], grad
 
 
-def resize_ce_fwd(grid, labels, weights, out_hw):
-    """Launch the forward kernel: -> (loss, total) 0-dim f32 tensors,
+def resize_ce_loss(grid, labels, weights, out_hw):
+    """Launch the loss-only kernel: -> (loss, total) 0-dim f32 tensors,
     total = max(sum(weights), 1)."""
-    b, c, gh, gw = grid.shape
-    h, w = int(out_hw[0]), int(out_hw[1])
-    tables = _tables(gh, gw, h, w, grid.device)
-    partial = torch.empty(2 * b * h, dtype=torch.float32, device=grid.device)
-    out = torch.empty(2, dtype=torch.float32, device=grid.device)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _function("resize_ce_fwd_launch", 11)(
-            grid.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-            *(t.data_ptr() for t in tables[:6]), partial.data_ptr(),
-            out.data_ptr(), b, c, gh, gw, h, w, stream)
-    _check(err, "resize_ce_fwd")
-    resize_ce_fwd.launches += 1
-    return out[0], out[1]
+    loss, total, _ = _launch(grid, labels, weights, out_hw, False)
+    resize_ce_loss.launches += 1
+    return loss, total
 
 
-def resize_ce_bwd(grid, labels, weights, out_hw):
-    """Launch the backward kernels: -> the unnormalized grid gradient
-    (B, C, gh, gw), sum over pixels of R^T ((softmax - onehot) * w) C^T."""
-    b, c, gh, gw = grid.shape
-    h, w = int(out_hw[0]), int(out_hw[1])
-    tables = _tables(gh, gw, h, w, grid.device)
-    scratch = torch.empty((b, c, h, gw), dtype=torch.float32,
-                          device=grid.device)
-    grad = torch.empty_like(grid)
-    with torch.cuda.device(grid.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _function("resize_ce_bwd_launch", 13)(
-            grid.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-            *(t.data_ptr() for t in tables), scratch.data_ptr(),
-            grad.data_ptr(), b, c, gh, gw, h, w, stream)
-    _check(err, "resize_ce_bwd")
-    resize_ce_bwd.launches += 1
-    return grad
+def resize_ce_loss_grad(grid, labels, weights, out_hw):
+    """Launch the kernel with the gradient: -> (loss, total, grad), grad
+    the unnormalized grid gradient (B, C, gh, gw), the sum over pixels of
+    R^T ((softmax - onehot) * w) C^T."""
+    out = _launch(grid, labels, weights, out_hw, True)
+    resize_ce_loss_grad.launches += 1
+    return out
 
 
-resize_ce_fwd.launches = 0
-resize_ce_bwd.launches = 0
+resize_ce_loss.launches = 0
+resize_ce_loss_grad.launches = 0
 
 
 class _ResizeCE(torch.autograd.Function):
-    """The kernels as an autograd node: the backward recomputes the softmax
-    from the grid logits instead of saving anything at full resolution,
-    and scales the unnormalized gradient by g / total, as the JAX
-    custom_vjp's ``_bwd`` does."""
+    """The kernel as an autograd node.  As the JAX custom_vjp's ``_fwd``
+    does, the forward computes the loss and the unnormalized gradient in
+    one launch and saves the gradient (B, C, gh, gw) and the weight total;
+    the backward scales it by g / total and launches nothing."""
 
     @staticmethod
     def forward(ctx, grid, labels, weights, out_hw):
-        loss, total = resize_ce_fwd(grid, labels, weights, out_hw)
-        ctx.save_for_backward(grid, labels, weights, total)
-        ctx.out_hw = out_hw
+        loss, total, grad = resize_ce_loss_grad(grid, labels, weights, out_hw)
+        ctx.save_for_backward(grad, total)
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        grid, labels, weights, total = ctx.saved_tensors
-        grad = resize_ce_bwd(grid, labels, weights, ctx.out_hw)
+        grad, total = ctx.saved_tensors
         return grad * (g / total), None, None, None
 
 
@@ -194,7 +255,7 @@ def fused_resize_ce(grid: torch.Tensor, labels: torch.Tensor,
     if min(b, c, gh, gw, h, w) < 1:
         raise ValueError("empty resize-CE: grid %s -> %dx%d"
                          % (tuple(grid.shape), h, w))
-    if 4 * (2 * c * gw + c * w) > _SMEM_LIMIT:
-        raise ValueError("resize-CE row of %d classes x %d pixels does not "
-                         "fit a block's shared memory" % (c, w))
-    return _ResizeCE.apply(grid, labels, weights, (h, w))
+    # decided here: grad mode is off inside Function.forward
+    if torch.is_grad_enabled() and grid.requires_grad:
+        return _ResizeCE.apply(grid, labels, weights, (h, w))
+    return resize_ce_loss(grid, labels, weights, (h, w))[0]

@@ -15,8 +15,9 @@ the card:
 1. builds the kernels from ams_tpu_torch/csrc with nvcc (all in parallel);
 2. holds each kernel against its plain PyTorch version at the paths'
    shapes and times kernel, plain version and the nearest library call
-   (resize+argmax; resize+CE forward and backward; the fused MBConv block
-   through K3's and K4's wrappers, against the unfused bf16 block);
+   (resize+argmax; resize+CE, loss only and loss with gradient; the fused
+   MBConv block through K3's and K4's wrappers, against the unfused bf16
+   block);
 3. the f32 client path, with every launch counter set to 0 just before it:
    predict_input on full-class and class-subset clients, delta apply on the
    float16 and int8d wires, predict again, BN-folded export, reload,
@@ -25,10 +26,12 @@ the card:
 4. the server path, with every launch counter set to 0 just before it:
    two events of restore_initial -> train_with_deque (fused resize+CE
    loss) -> encode_delta (float16, then int8d) -> apply_downlink on an
-   unfolded client -> predict_input, with the round's invariants checked;
-   plus one iteration of the fused loss against the gather loss, the
-   device time per iteration of both, a small round held against the
-   port's own CPU round, and a profile of one iteration;
+   unfolded client -> predict_input, with the round's invariants checked,
+   then the trained student's loss on the memory without a gradient
+   (the loss-only kernel) against the gather loss; plus one iteration of
+   the fused loss against the gather loss, the device time per iteration
+   of both, a small round held against the port's own CPU round, and a
+   profile of one iteration;
 5. the bf16 folded client path, with every launch counter set to 0 just
    before it: the facade in bf16 (predict, a float16 delta, fold, reload,
    predict and score), then the folded fast path with unfused, fused (K3)
@@ -79,7 +82,7 @@ def reset_counters():
     from ams_tpu_torch.ops import fused_resize_ce as frc
 
     fra.fused_resize_argmax.launches = 0
-    frc.resize_ce_fwd.launches = frc.resize_ce_bwd.launches = 0
+    frc.resize_ce_loss.launches = frc.resize_ce_loss_grad.launches = 0
     fm.mbconv_block.launches = fb.mbconv_banded.launches = 0
 
 
@@ -181,6 +184,25 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters):
+    """Mean device time per call of ``fn``: the CUDA kernels' durations
+    summed by torch.profiler over ``iters`` calls after one warm-up,
+    without the idle gaps between launches that ``cuda_ms`` counts when
+    the host cannot keep up with a short kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    check(total_us > 0, "torch.profiler recorded no device time")
+    return total_us / 1e3 / iters
 
 
 def device_breakdown(fn, top=8):
@@ -448,13 +470,14 @@ def phase_main_path(dev):
 def resize_ce_bound_ms(b, c, gh, gw, h, w, backward=False):
     """Least time for the fused resize+CE on an H100 SXM: each input read
     once and each output written once (the grid, int32 labels, f32
-    weights; the scalar loss, or the grid gradient) over 3.35 TB/s; or
-    the operations over 67 TFLOP/s f32: the separable lerp (3 ops per
-    grid-row sample and per pixel, each class) and max/subtract/exp/add per
-    pixel and class, plus log and the masked sums per pixel; the backward
-    adds the softmax gradient (3 per pixel and class) and the transposed
-    separable lerp (4 per pixel and class, 4 per output row, grid column
-    and class).  The larger one bounds."""
+    weights; the scalar loss, or with ``backward`` also the grid gradient)
+    over 3.35 TB/s; or the operations over 67 TFLOP/s f32: the separable
+    lerp (3 ops per grid-row sample and per pixel, each class) and
+    max/subtract/exp/add per pixel and class, plus log and the masked sums
+    per pixel; with ``backward`` (loss and gradient) also the softmax
+    gradient (3 per pixel and class) and the transposed separable lerp (4
+    per pixel and class, 4 per output row, grid column and class).  The
+    larger one bounds."""
     grid = b * c * gh * gw * 4
     nbytes = grid + 2 * b * h * w * 4 + (grid if backward else 8)
     ops = 3 * b * c * (gh * w + h * w) + 4 * b * c * h * w + 5 * b * h * w
@@ -465,18 +488,47 @@ def resize_ce_bound_ms(b, c, gh, gw, h, w, backward=False):
                                        else "operations")
 
 
+def resize_ce_plan_line(plan, b, smem):
+    """One line on how K2's plan cuts a shape: blocks, threads, shared
+    memory (``smem``: the kernel's bytes per block, loss and loss+grad),
+    rows per band and columns per tile (runs of equal counts written once
+    with their length)."""
+    import itertools
+
+    import numpy as np
+
+    def runs(a):
+        counted = [(k, len(list(g))) for k, g in itertools.groupby(a)]
+        return ", ".join("%d x%d" % (k, n) if n > 1 else str(k)
+                         for k, n in counted)
+
+    return ("%d blocks (%d images x %d bands x %d tiles) of %d threads; "
+            "shared memory %d B (loss) / %d B (loss+grad); rows per band "
+            "%s; columns per tile %s"
+            % (plan.blocks(b), b, len(plan.bands), len(plan.tiles),
+               plan.threads, smem[0], smem[1],
+               runs(np.diff(plan.bands, axis=1)[:, 0]),
+               runs(np.diff(plan.tiles[:, 2:4], axis=1)[:, 0])))
+
+
 def phase_resize_ce_checks(dev):
-    """Phase 2, K2: the fused resize+CE kernels, forward and backward,
-    against the plain version, and their times."""
+    """Phase 2, K2: the fused resize+CE kernel, loss only and loss with
+    gradient, against the plain version, and their times beside the plain
+    version's, the library's and the bounds."""
     import torch
     import torch.nn.functional as F
     from ams_tpu_torch.ops import fused_resize_ce as frc
 
+    smem_fn = frc.library().resize_ce_smem_bytes
     cases = [("server round, 19 classes", (10, 19, 17, 33, SH, SW), 0.8),
              ("server round, exp %d subset" % SUBSET_EXP,
               (10, 6, 17, 33, SH, SW), 0.8),
              ("ragged, odd height", (3, 7, 5, 9, 65, 128), 0.8),
-             ("all pixels invalid", (10, 19, 17, 33, SH, SW), 0.0)]
+             ("all pixels invalid", (10, 19, 17, 33, SH, SW), 0.0),
+             ("output below the grid", (2, 19, 33, 65, 16, 32), 0.8),
+             ("wide", (2, 21, 65, 129, 512, 2048), 0.8),
+             ("96 classes, above the register bound",
+              (2, 96, 17, 33, SH, SW), 0.8)]
     gen = torch.Generator().manual_seed(SEED + 7)
     out = []
     for label, (b, c, gh, gw, h, w), p_valid in cases:
@@ -485,6 +537,11 @@ def phase_resize_ce_checks(dev):
                                dtype=torch.int32).to(dev)
         weights = (torch.rand(b, h, w, generator=gen) < p_valid).float() \
             .to(dev)
+        plan = frc.resize_ce_plan(gh, gw, h, w)
+        smem = [smem_fn(c, plan.threads, plan.ncol_max, want_grad)
+                for want_grad in (0, 1)]
+        log("  resize_ce %s plan: %s" % (label,
+                                         resize_ce_plan_line(plan, b, smem)))
 
         def kernel_pair():
             g = grid.clone().requires_grad_(True)
@@ -496,12 +553,34 @@ def phase_resize_ce_checks(dev):
             loss = frc.resize_ce_plain(g, labels, weights, (h, w))
             return loss.detach(), torch.autograd.grad(loss, g)[0]
 
+        def library_loss(g):
+            full = F.interpolate(g, size=(h, w), mode="bilinear",
+                                 align_corners=True)
+            ce = F.cross_entropy(full, labels.long(), reduction="none")
+            return torch.sum(ce * weights) / torch.clamp(torch.sum(weights),
+                                                         min=1.0)
+
+        def library_pair():
+            g = grid.clone().requires_grad_(True)
+            return torch.autograd.grad(library_loss(g), g)[0]
+
+        n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
         k_loss, k_grad = kernel_pair()
         k_loss2, k_grad2 = kernel_pair()
+        with torch.no_grad():
+            only = frc.fused_resize_ce(grid, labels, weights, (h, w))
+            only2 = frc.fused_resize_ce(grid, labels, weights, (h, w))
+        n1 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
         p_loss, p_grad = plain_pair()
         torch.cuda.synchronize()
+        check(n1 == (n0[0] + 2, n0[1] + 2),
+              "resize_ce: two calls under grad and two under no_grad "
+              "launched %d loss and %d loss+grad kernels in case %s"
+              % (n1[0] - n0[0], n1[1] - n0[1], label))
         same_bits = bool(torch.equal(k_loss, k_loss2)
-                         and torch.equal(k_grad, k_grad2))
+                         and torch.equal(k_grad, k_grad2)
+                         and torch.equal(only, only2)
+                         and torch.equal(only, k_loss))
         loss_err = float((k_loss - p_loss).abs())
         grad_err = float((k_grad - p_grad).abs().max())
         grad_ok = bool(torch.allclose(k_grad, p_grad, rtol=1e-4, atol=1e-6))
@@ -516,49 +595,57 @@ def phase_resize_ce_checks(dev):
         check(grad_ok, "resize_ce gradient differs from the plain version's "
               "in case %s: max abs err %g" % (label, grad_err))
 
-        def library_loss(g):
-            full = F.interpolate(g, size=(h, w), mode="bilinear",
-                                 align_corners=True)
-            ce = F.cross_entropy(full, labels.long(), reduction="none")
-            return torch.sum(ce * weights) / torch.clamp(torch.sum(weights),
-                                                         min=1.0)
+        def loss_only():
+            return frc.resize_ce_loss(grid, labels, weights, (h, w))
 
+        def loss_grad():
+            return frc.resize_ce_loss_grad(grid, labels, weights, (h, w))
+
+        def plain_loss():
+            return frc.resize_ce_plain(grid, labels, weights, (h, w))
+
+        # per call by CUDA events over back-to-back calls, as every kernel
+        # of the kernels line is timed (host-bound for a short kernel); and
+        # the kernels' own time on the device by the profiler
+        times = {}
         with torch.no_grad():
             lib_err = float((library_loss(grid) - p_loss).abs())
-            fwd_ms = cuda_ms(lambda: frc.resize_ce_fwd(
-                grid, labels, weights, (h, w)), 50)
-            bwd_ms = cuda_ms(lambda: frc.resize_ce_bwd(
-                grid, labels, weights, (h, w)), 50)
-            plain_fwd = cuda_ms(lambda: frc.resize_ce_plain(
-                grid, labels, weights, (h, w)), 10)
-            lib_fwd = cuda_ms(lambda: library_loss(grid), 10)
-        g = grid.clone().requires_grad_(True)
-        lp = frc.resize_ce_plain(g, labels, weights, (h, w))
-        plain_bwd = cuda_ms(lambda: torch.autograd.grad(
-            lp, g, retain_graph=True), 10)
-        ll = library_loss(g)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
-            ll, g, retain_graph=True), 10)
-        del lp, ll
-        fb, fby = resize_ce_bound_ms(b, c, gh, gw, h, w)
-        bb, bby = resize_ce_bound_ms(b, c, gh, gw, h, w, backward=True)
+            for name, fn, n in (("loss", loss_only, 50),
+                                ("loss_plain", plain_loss, 10),
+                                ("loss_library", lambda: library_loss(grid),
+                                 10),
+                                ("loss_grad", loss_grad, 50)):
+                times[name] = (cuda_ms(fn, n), device_ms(fn, n))
+        for name, fn, n in (("loss_grad_plain", plain_pair, 10),
+                            ("loss_grad_library", library_pair, 10),
+                            ("loss_grad_autograd", kernel_pair, 50)):
+            times[name] = (cuda_ms(fn, n), device_ms(fn, n))
+        lb, lby = resize_ce_bound_ms(b, c, gh, gw, h, w)
+        gb, gby = resize_ce_bound_ms(b, c, gh, gw, h, w, backward=True)
         row = {"case": label, "shape": [b, c, gh, gw, h, w],
+               "plan": {"blocks": plan.blocks(b), "threads": plan.threads,
+                        "tiles": len(plan.tiles),
+                        "smem_bytes": smem[1]},
                "loss": float(k_loss), "loss_abs_err": loss_err,
                "grad_max_abs_err": grad_err, "same_bits": same_bits,
                "library_loss_abs_err": lib_err,
-               "fwd_ms": fwd_ms, "fwd_plain_ms": plain_fwd,
-               "fwd_library_ms": lib_fwd, "fwd_bound_ms": fb,
-               "fwd_bound_by": fby,
-               "bwd_ms": bwd_ms, "bwd_plain_ms": plain_bwd,
-               "bwd_library_ms": lib_bwd, "bwd_bound_ms": bb,
-               "bwd_bound_by": bby}
+               "loss_bound_ms": lb, "loss_bound_by": lby,
+               "loss_grad_bound_ms": gb, "loss_grad_bound_by": gby}
+        for name, (call_t, dev_t) in times.items():
+            row[name + "_ms"] = call_t
+            row[name + "_device_ms"] = dev_t
         log("  resize_ce %s %s: loss %.6f (err %.3g), grad max err %.3g, "
-            "same bits on rerun %s; forward kernel %.4f ms, plain %.4f, "
-            "library %.4f, bound %.4f (%s); backward kernel %.4f ms, plain "
-            "%.4f, library %.4f, bound %.4f (%s); library loss err %.3g"
+            "same bits on rerun %s; library loss err %.3g"
             % (label, row["shape"], float(k_loss), loss_err, grad_err,
-               same_bits, fwd_ms, plain_fwd, lib_fwd, fb, fby, bwd_ms,
-               plain_bwd, lib_bwd, bb, bby, lib_err))
+               same_bits, lib_err))
+        log("    ms per call by events / on the device: loss kernel %.4f / "
+            "%.4f, plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s); "
+            "loss+grad kernel %.4f / %.4f (through autograd %.4f / %.4f), "
+            "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
+            % (times["loss"] + times["loss_plain"] + times["loss_library"]
+               + (lb, lby) + times["loss_grad"] + times["loss_grad_autograd"]
+               + times["loss_grad_plain"] + times["loss_grad_library"]
+               + (gb, gby)))
         out.append(row)
     return out
 
@@ -925,11 +1012,12 @@ def phase_server(dev):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         iters_run += iters
-        check(frc.resize_ce_fwd.launches == iters_run
-              and frc.resize_ce_bwd.launches == iters_run,
-              "event %d: resize_ce launched %d forward and %d backward for "
-              "%d iterations" % (event, frc.resize_ce_fwd.launches,
-                                 frc.resize_ce_bwd.launches, iters_run))
+        check(frc.resize_ce_loss_grad.launches == iters_run
+              and frc.resize_ce_loss.launches == 0,
+              "event %d: resize_ce launched %d loss+grad and %d loss-only "
+              "kernels for %d iterations (want one loss+grad each)"
+              % (event, frc.resize_ce_loss_grad.launches,
+                 frc.resize_ce_loss.launches, iters_run))
         check(losses.shape == (iters,) and np.isfinite(losses).all(),
               "event %d: losses %s" % (event, losses[:5]))
         first, last = float(losses[:10].mean()), float(losses[-10:].mean())
@@ -997,12 +1085,33 @@ def phase_server(dev):
             iters = 50
             log("  event 1 took over 120 s: event 2 runs %d iterations"
                 % iters)
-    launches = {"resize_ce_fwd": frc.resize_ce_fwd.launches,
-                "resize_ce_bwd": frc.resize_ce_bwd.launches,
+    # the trained student's loss on the memory, without a gradient: the
+    # fused loss (the loss-only kernel) against the gather loss
+    trained = params_from_numpy(server.get_vars(), dev)
+    with torch.no_grad():
+        held = []
+        for i in range(0, MEMORY, 32):
+            f = staged[i:i + MINI_BATCH].float()
+            lab = torch.from_numpy(labels[i:i + MINI_BATCH]).to(dev)
+            held.append([float(distill_loss(trained, f, lab, ci, 19,
+                                            train=True, fused=fused)[0])
+                         for fused in (True, False)])
+    held_rel = max(abs(fu - ga) / abs(ga) for fu, ga in held)
+    log("  trained student's loss on %d memory minibatches, no gradient: "
+        "fused %s, gather %s (max rel %.3g)"
+        % (len(held), [fu for fu, _ in held], [ga for _, ga in held],
+           held_rel))
+    check(held_rel <= 1e-5, "no-grad fused vs gather loss differ by %g"
+          % held_rel)
+    launches = {"resize_ce_loss": frc.resize_ce_loss.launches,
+                "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
                 "resize_argmax": fra.fused_resize_argmax.launches}
     log("  kernel launches on the server path: %s" % launches)
     check(launches["resize_argmax"] > 0, "the client's predict_input did "
           "not launch resize_argmax on the server path")
+    check(launches["resize_ce_loss"] == len(held),
+          "the no-grad loss launched resize_ce_loss %d times for %d "
+          "minibatches" % (launches["resize_ce_loss"], len(held)))
 
     # one iteration, same params and minibatch, fused vs gather loss
     idx = torch.arange(MINI_BATCH, device=dev)
@@ -1332,8 +1441,8 @@ def phase_bf16_client(dev, host):
           % (oh, ow, k4_odd, k4_want, agree_odd))
 
     launches = {"resize_argmax": fra.fused_resize_argmax.launches,
-                "resize_ce_fwd": frc.resize_ce_fwd.launches,
-                "resize_ce_bwd": frc.resize_ce_bwd.launches,
+                "resize_ce_loss": frc.resize_ce_loss.launches,
+                "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
                 "mbconv": fm.mbconv_block.launches,
                 "mbconv_banded": fb.mbconv_banded.launches}
     log("  kernel launches on the bf16 client path: %s" % launches)
@@ -1408,8 +1517,8 @@ def main() -> int:
         "server_path_launches": server_launches["resize_argmax"],
         "shape": main_case["shape"], "cases": cases}]
     ce_main = ce_cases[0]
-    for part in ("fwd", "bwd"):
-        key = "grad_max_abs_err" if part == "bwd" else "loss_abs_err"
+    for part, key in (("loss", "loss_abs_err"),
+                      ("loss_grad", "grad_max_abs_err")):
         kernels.append({
             "name": "resize_ce_" + part, "route": "cuda",
             "source": frc.SOURCE, "replaces": frc.REPLACES,
@@ -1420,10 +1529,18 @@ def main() -> int:
             "bound_ms": ce_main[part + "_bound_ms"],
             "bound_by": ce_main[part + "_bound_by"],
             "library_ms": ce_main[part + "_library_ms"],
+            "timed_by": "ms: CUDA events over back-to-back calls, as for "
+                        "every kernel; *device_ms: torch.profiler's kernel "
+                        "durations",
+            "device_ms": ce_main[part + "_device_ms"],
+            "plain_device_ms": ce_main[part + "_plain_device_ms"],
+            "library_device_ms": ce_main[part + "_library_device_ms"],
             "same_bits_on_rerun": all(c["same_bits"] for c in ce_cases),
-            "shape": ce_main["shape"],
+            "shape": ce_main["shape"], "plan": ce_main["plan"],
             "cases": [{k: v for k, v in c.items()
-                       if k in ("case", "shape", key) or k.startswith(part)}
+                       if k in ("case", "shape", key)
+                       or k.startswith(part + "_")
+                       and (part == "loss_grad") == k.startswith("loss_grad")}
                       for c in ce_cases]})
     for name, which in (("mbconv", "K3"), ("mbconv_banded", "K4")):
         mod = fm if which == "K3" else fb
@@ -1466,6 +1583,12 @@ def main() -> int:
                ev["client_miou_before"], ev["client_miou_after"]))
     log("server device ms per iteration: fused loss %.3f, gather loss %.3f"
         % (per_iter[True], per_iter[False]))
+    for c in ce_cases:
+        log("resize_ce %s %s: loss %.4f ms, loss+grad %.4f ms per call "
+            "(%.4f, %.4f on the device; bounds %.4f, %.4f); plan %s"
+            % (c["case"], c["shape"], c["loss_ms"], c["loss_grad_ms"],
+               c["loss_device_ms"], c["loss_grad_device_ms"],
+               c["loss_bound_ms"], c["loss_grad_bound_ms"], c["plan"]))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

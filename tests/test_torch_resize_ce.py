@@ -11,9 +11,12 @@ Tolerances, the bar of tests/test_fused_ce.py: the loss to rtol 1e-5 (the
 Pallas kernel upsamples by matmuls, the port by lerps: f32 rounding
 differs); the grid gradient to rtol 1e-4 / atol 1e-6.  The all-invalid
 case is exactly 0 in loss and gradient.  The numpy emulation of the CUDA
-backward's separable, range-table form agrees with autograd to rtol 1e-5
-/ atol 1e-7 (the same sums in another order).
+kernel's blocks and sum order, on the wrapper's plan, agrees with the
+plain loss to rtol 1e-5 and with float64 autograd's gradient to rtol
+1e-5 / atol 1e-9 (the same sums in another order, in float64).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -96,55 +99,223 @@ def test_cpu_wrapper_routes_to_the_plain_version():
     grid, labels, weights = _case(4, 2, 5, 9, 6, 33, 65)
     g = torch.from_numpy(np.ascontiguousarray(grid.transpose(0, 3, 1, 2)))
     lab, wt = torch.from_numpy(labels), torch.from_numpy(weights)
-    fwd0, bwd0 = frc.resize_ce_fwd.launches, frc.resize_ce_bwd.launches
+    n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
     got = frc.fused_resize_ce(g, lab, wt, (33, 65))
     want = frc.resize_ce_plain(g, lab, wt, (33, 65))
     assert torch.equal(got, want)
-    assert (frc.resize_ce_fwd.launches, frc.resize_ce_bwd.launches) == \
-        (fwd0, bwd0)
+    assert (frc.resize_ce_loss.launches,
+            frc.resize_ce_loss_grad.launches) == n0
     with pytest.raises(ValueError):
         frc.fused_resize_ce(g, lab[:, :-1], wt, (33, 65))
     with pytest.raises(ValueError):
         frc.fused_resize_ce(g[0], lab, wt, (33, 65))
 
 
-def test_backward_range_tables_reproduce_the_gradient():
-    """The CUDA backward sums G over x by the inverse ranges of the lerp
-    tables (pass A), then over y (pass B).  The same sums in numpy, with
-    the wrapper's own tables, give autograd's unnormalized gradient."""
+def emulate_kernel(grid, labels, weights, out_hw):
+    """numpy, in float64: the CUDA kernel's blocks and sums, built on the
+    wrapper's own plan.  One block per (image, band, tile): per column, the
+    band's rows in order into a top and a bottom sum per class; per chunk,
+    the x range of each (class, side, grid column) into the tile's partial;
+    then each grid cell sums its (band, side) partials in the finishing
+    order, the tile to the left first.  grid (B, C, gh, gw) -> (loss,
+    total, unnormalized gradient)."""
+    b, c, gh, gw = grid.shape
+    h, w = out_hw
+    plan = frc.resize_ce_plan(gh, gw, h, w)
+    _, _, yw = _lerp_weights(gh, h)
+    xlo, xhi, xw = _lerp_weights(gw, w)
+    yw, xw = yw.astype(np.float64), xw.astype(np.float64)
+    g = grid.astype(np.float64)
+    classes = np.arange(c)[None, :, None]
+    part = np.zeros((b, gh, 2, c, plan.sumcol))
+    num = np.zeros(b)
+    den = np.zeros(b)
+    for band in range(gh):
+        ys, ye = plan.bands[band]
+        rows = g[:, :, band], g[:, :, min(band + 1, gh - 1)]
+        for g0, g1, xs, xe, poff in plan.tiles:
+            ncol = min(g1, gw - 1) - g0 + 1
+            spart = np.zeros((b, 2, c, ncol))
+            for cx0 in range(xs, xe, plan.threads):
+                x = np.arange(cx0, min(cx0 + plan.threads, xe))
+                wx = xw[x]
+                top, bot = (r[..., xlo[x]] + (r[..., xhi[x]] - r[..., xlo[x]])
+                            * wx for r in rows)
+                acc = np.zeros((b, 2, c, len(x)))
+                for y in range(ys, ye):
+                    u = top + (bot - top) * yw[y]
+                    m = u.max(1, keepdims=True)
+                    e = np.exp(u - m)
+                    s = e.sum(1)
+                    lab, v = labels[:, y, x], weights[:, y, x]
+                    ok = (lab >= 0) & (lab < c)
+                    u_lab = np.take_along_axis(
+                        u, np.clip(lab, 0, c - 1)[:, None], 1)[:, 0]
+                    ce = np.where(ok, np.log(s) - (u_lab - m[:, 0]), 0.0)
+                    num += (ce * v).sum(-1)
+                    den += v.sum(-1)
+                    gk = (e / s[:, None] - (lab[:, None] == classes)) \
+                        * np.where(ok, v, 0.0)[:, None]
+                    acc[:, 0] += gk * (1 - yw[y])
+                    acc[:, 1] += gk * yw[y]
+                for j in range(ncol):
+                    r = plan.xr[g0 + j] - cx0
+                    lo = slice(max(r[0], 0), min(r[1], len(x)))
+                    hi = slice(max(r[2], 0), min(r[3], len(x)))
+                    spart[..., j] += (acc[..., lo] * (1 - wx[lo])).sum(-1) \
+                        + (acc[..., hi] * wx[hi]).sum(-1)
+            part[:, band, ..., poff:poff + ncol] = spart
+    grad = np.zeros((b, c, gh, gw))
+    for gx in range(gw):
+        t = plan.tile_of[gx]
+        g0, _, _, _, poff = plan.tiles[t]
+        cols = [poff + gx - g0]
+        if gx == g0 and t > 0:
+            p0, p1, _, _, ppoff = plan.tiles[t - 1]
+            cols.insert(0, ppoff + p1 - p0)
+        for gy in range(gh):
+            sides = [(gy, 0)] + [(gy - 1, 1)] * (gy > 0) \
+                + [(gy, 1)] * (gy == gh - 1)
+            for band, side in sides:
+                for col in cols:
+                    grad[:, :, gy, gx] += part[:, band, side, :, col]
+    total = max(den.sum(), 1.0)
+    return num.sum() / total, total, grad
+
+
+# the server round's shape at batch 2, and the edge cases of the plan
+PLAN_CASES = {
+    "server": (2, 19, 17, 33, 256, 512),
+    "ragged": (3, 7, 5, 9, 65, 127),
+    "gh_1": (2, 5, 1, 9, 64, 128),
+    "gw_1": (2, 5, 5, 1, 64, 300),
+    "h_below_gh": (2, 6, 33, 65, 16, 32),
+    "w_not_tile_multiple": (2, 6, 5, 20, 64, 300),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_plan_covers_each_pixel_once_and_reaches_only_adjacent_cells(name):
+    """Bands and tiles partition the output; every row of band gy lerps
+    between grid rows gy and min(gy + 1, gh - 1), every column of a tile
+    between grid columns the tile owns; and the finishing order gives each
+    grid cell exactly the rows and columns whose lerp touches it."""
+    _, _, gh, gw, h, w = PLAN_CASES[name]
+    plan = frc.resize_ce_plan(gh, gw, h, w)
+    ylo, yhi, _ = _lerp_weights(gh, h)
+    xlo, xhi, _ = _lerp_weights(gw, w)
+    rows = np.concatenate([np.arange(*r) for r in plan.bands])
+    np.testing.assert_array_equal(rows, np.arange(h))
+    for gy, (ys, ye) in enumerate(plan.bands):
+        assert (ylo[ys:ye] == gy).all()
+        assert (yhi[ys:ye] == min(gy + 1, gh - 1)).all()
+    g0, g1, xs, xe, poff = plan.tiles.T
+    np.testing.assert_array_equal(np.concatenate([[0], g1[:-1]]), g0)
+    assert g1[-1] == gw and (g1 > g0).all()
+    cols = np.concatenate([np.arange(a, z) for a, z in zip(xs, xe)])
+    np.testing.assert_array_equal(cols, np.arange(w))
+    ncol = np.minimum(g1, gw - 1) - g0 + 1
+    np.testing.assert_array_equal(poff, np.cumsum(ncol) - ncol)
+    assert plan.sumcol == ncol.sum() and plan.ncol_max == ncol.max()
+    for t in range(len(plan.tiles)):
+        x = np.arange(xs[t], xe[t])
+        assert (xe[t] - xs[t] <= plan.threads
+                or g1[t] - g0[t] == 1), "a tile wider than its block"
+        assert ((xlo[x] >= g0[t]) & (xlo[x] < g1[t])).all()
+        assert ((xhi[x] >= g0[t]) & (xhi[x] < g0[t] + ncol[t])).all()
+    for gx in range(gw):
+        t = plan.tile_of[gx]
+        assert g0[t] <= gx < g1[t]
+        # the columns the finisher reads for gx: x of tile t through its
+        # column gx - g0, and of tile t - 1 through its last column
+        reach = [x for x in range(xs[t], xe[t])
+                 if xlo[x] == gx or xhi[x] == gx]
+        if gx == g0[t] and t > 0:
+            reach += [x for x in range(xs[t - 1], xe[t - 1])
+                      if xhi[x] == gx]
+        want = np.flatnonzero((xlo == gx) | (xhi == gx))
+        np.testing.assert_array_equal(np.sort(reach), want)
+        assert len(set(reach)) == len(reach)
+    for gy in range(gh):
+        sides = [(gy, 0)] + [(gy - 1, 1)] * (gy > 0) \
+            + [(gy, 1)] * (gy == gh - 1)
+        reach = [(y, side) for band, side in sides
+                 for y in range(*plan.bands[band])]
+        want = [(y, 0) for y in np.flatnonzero(ylo == gy)] \
+            + [(y, 1) for y in np.flatnonzero(yhi == gy)]
+        assert sorted(reach) == sorted(want)
+
+
+def _dense64(n_in, n_out):
+    """(n_out, n_in) float64 align-corners lerp matrix of the same tables."""
+    lo, hi, wt = _lerp_weights(n_in, n_out)
+    m = np.zeros((n_out, n_in))
+    np.add.at(m, (np.arange(n_out), lo), 1.0 - wt.astype(np.float64))
+    np.add.at(m, (np.arange(n_out), hi), wt.astype(np.float64))
+    return torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_kernel_sum_order_reproduces_loss_and_gradient(name):
+    """The kernel's blocks, band sums, tile contractions and finishing
+    order, emulated in numpy on the wrapper's plan, give the plain loss
+    (rtol 1e-5) and the unnormalized gradient that autograd gives for the
+    same loss in float64 (rtol 1e-5, atol 1e-9: the same sums in another
+    order; float32 autograd would add its own rounding over hundreds of
+    terms of either sign per grid cell)."""
+    b, nc, gh, gw, h, w = PLAN_CASES[name]
+    grid, labels, weights = _case(7, b, gh, gw, nc, h, w)
+    labels[0, 0, :3] = [-1, nc, nc + 5]         # out of range: CE 0, no grad
+    nchw = np.ascontiguousarray(grid.transpose(0, 3, 1, 2))
+    lab, wt = torch.from_numpy(labels), torch.from_numpy(weights)
+    plain = float(frc.resize_ce_plain(torch.from_numpy(nchw), lab, wt,
+                                      (h, w)))
+    g64 = torch.from_numpy(nchw).double().requires_grad_(True)
+    full = torch.einsum("Hg,bcgw,Ww->bcHW", _dense64(gh, h), g64,
+                        _dense64(gw, w))
+    onehot = lab.long()[:, None] == torch.arange(nc)[None, :, None, None]
+    ce = -(onehot * torch.log_softmax(full, dim=1)).sum(1)
+    (want,) = torch.autograd.grad((ce * wt.double()).sum(), g64)
+    total = max(float(weights.sum()), 1.0)
+    e_loss, e_total, e_grad = emulate_kernel(nchw, labels, weights, (h, w))
+    assert e_total == total
+    np.testing.assert_allclose(e_loss, plain, rtol=1e-5)
+    np.testing.assert_allclose(e_grad, want.numpy(), rtol=1e-5, atol=1e-9)
+
+
+def test_autograd_node_launches_once_and_its_backward_none(monkeypatch):
+    """Under grad the node's forward launches the kernel with the gradient
+    once, and its backward scales the saved gradient by g / total without
+    a launch; the loss-only launch serves calls without grad.  The launch
+    itself is the numpy emulation here (the kernel runs only on the
+    card)."""
     seed, b, gh, gw, nc, h, w = CASES["ragged"]
     grid, labels, weights = _case(seed, b, gh, gw, nc, h, w)
+
+    def fake_launch(grid_t, lab, wt, out_hw, want_grad):
+        loss, total, grad = emulate_kernel(grid_t.detach().numpy(),
+                                           lab.numpy(), wt.numpy(), out_hw)
+        f32 = functools.partial(torch.tensor, dtype=torch.float32)
+        return f32(loss), f32(total), f32(grad) if want_grad else None
+
+    monkeypatch.setattr(frc, "_launch", fake_launch)
     g = torch.from_numpy(np.ascontiguousarray(grid.transpose(0, 3, 1, 2)))
     g.requires_grad_(True)
-    loss = frc.resize_ce_plain(g, torch.from_numpy(labels),
-                               torch.from_numpy(weights), (h, w))
-    (want,) = torch.autograd.grad(loss, g)
-    want = want.numpy() * max(weights.sum(), 1.0)
-
-    from ams_tpu_torch.models.resize import resize_nchw
-    full = resize_nchw(g.detach(), (h, w)).numpy().astype(np.float64)
-    p = np.exp(full - full.max(1, keepdims=True))
-    p /= p.sum(1, keepdims=True)
-    onehot = labels[:, None] == np.arange(nc)[None, :, None, None]
-    gmat = (p - onehot) * weights[:, None]                  # (b, nc, h, w)
-
-    ylo, yhi, yw = _lerp_weights(gh, h)
-    xlo, xhi, xw = _lerp_weights(gw, w)
-    yr = frc._ranges(ylo, yhi, gh).reshape(gh, 4)
-    xr = frc._ranges(xlo, xhi, gw).reshape(gw, 4)
-    hsum = np.zeros((b, nc, h, gw))
-    for gx in range(gw):
-        lo = slice(xr[gx, 0], xr[gx, 1])
-        hi = slice(xr[gx, 2], xr[gx, 3])
-        hsum[..., gx] = (gmat[..., lo] * (1 - xw[lo])).sum(-1) \
-            + (gmat[..., hi] * xw[hi]).sum(-1)
-    got = np.zeros((b, nc, gh, gw))
-    for gy in range(gh):
-        lo = slice(yr[gy, 0], yr[gy, 1])
-        hi = slice(yr[gy, 2], yr[gy, 3])
-        got[:, :, gy] = (hsum[:, :, lo] * (1 - yw[lo])[:, None]).sum(2) \
-            + (hsum[:, :, hi] * yw[hi][:, None]).sum(2)
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    lab, wt = torch.from_numpy(labels), torch.from_numpy(weights)
+    n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
+    loss = frc._ResizeCE.apply(g, lab, wt, (h, w))
+    assert (frc.resize_ce_loss.launches,
+            frc.resize_ce_loss_grad.launches) == (n0[0], n0[1] + 1)
+    (got,) = torch.autograd.grad(loss * 3.0, g)
+    assert frc.resize_ce_loss_grad.launches == n0[1] + 1
+    ref = frc.resize_ce_plain(g, lab, wt, (h, w))
+    (want,) = torch.autograd.grad(ref * 3.0, g)
+    torch.testing.assert_close(loss, ref.detach(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    only, total = frc.resize_ce_loss(g.detach(), lab, wt, (h, w))
+    assert frc.resize_ce_loss.launches == n0[0] + 1
+    assert float(total) == max(float(weights.sum()), 1.0)
+    torch.testing.assert_close(only, ref.detach(), rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda
@@ -157,9 +328,17 @@ def test_kernels_match_plain_on_the_card():
         grid.transpose(0, 3, 1, 2))).cuda().requires_grad_(True)
     lab = torch.from_numpy(labels).cuda()
     wt = torch.from_numpy(weights).cuda()
+    n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
     loss = frc.fused_resize_ce(g, lab, wt, (64, 128))
     (grad,) = torch.autograd.grad(loss, g)
+    assert (frc.resize_ce_loss.launches,
+            frc.resize_ce_loss_grad.launches) == (n0[0], n0[1] + 1)
+    with torch.no_grad():
+        only = frc.fused_resize_ce(g, lab, wt, (64, 128))
+    assert (frc.resize_ce_loss.launches,
+            frc.resize_ce_loss_grad.launches) == (n0[0] + 1, n0[1] + 1)
     ref = frc.resize_ce_plain(g, lab, wt, (64, 128))
     (ref_grad,) = torch.autograd.grad(ref, g)
     torch.testing.assert_close(loss, ref, rtol=1e-5, atol=0)
+    torch.testing.assert_close(only, ref.detach(), rtol=1e-5, atol=0)
     torch.testing.assert_close(grad, ref_grad, rtol=1e-4, atol=1e-6)
