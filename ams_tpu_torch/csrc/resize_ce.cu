@@ -54,8 +54,11 @@
 //     lerps from the (L1-cached) grid where it needs them and keeps the
 //     two sums in the thread's own column of shared memory, in the same
 //     order, so it gives the same bits; its shared memory grows with C
-//     (2C rows of threads + 1, plus the partial), which bounds C at 149
-//     to 209 at 128 threads, by the tile's grid columns.
+//     (2C rows of threads + 1, plus the partial).  So the host's planner
+//     asks resize_ce_smem_bytes and resize_ce_smem_limit and steps down
+//     to 64 or 32 threads, then to fewer grid intervals per tile, until a
+//     block fits: at 32 threads and one interval per tile, 64 + 70 C
+//     floats, so up to 829 classes on an H100 (227 KB a block).
 //   - The x half.  The block writes its columns' sums to shared memory as
 //     2C rows of threads + 1 floats (odd stride, so neighbouring classes of
 //     one column fall in distinct banks), then one thread per (class, side,
@@ -408,6 +411,17 @@ extern "C" size_t resize_ce_smem_bytes(int C, int threads, int ncol_max,
                                        int want_grad) {
     return sizeof(float) * band_smem_floats(C, threads, ncol_max,
                                             want_grad != 0);
+}
+
+// The most dynamic shared memory a block may use on ``device``, in bytes
+// (232,448 on an H100), or -1 if the device cannot be asked.
+extern "C" int resize_ce_smem_limit(int device) {
+    int bytes = 0;
+    if (cudaDeviceGetAttribute(&bytes,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device) != cudaSuccess)
+        return -1;
+    return bytes;
 }
 
 // Loss, and with grad != NULL the unnormalized grid gradient (B, C, gh,

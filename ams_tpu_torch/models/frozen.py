@@ -211,15 +211,14 @@ def student_predict_fast_folded(folded: Params, frames: torch.Tensor,
                                 compute_dtype=torch.float32,
                                 fused_blocks=False) -> torch.Tensor:
     """Folded client fast path: forward with no BN ops + the fused
-    upsample+argmax kernel (the deployed-edge hot loop)."""
+    upsample+argmax kernel (the deployed-edge hot loop), which reads the
+    grid in the compute type and layout and the class subset itself."""
     from ams_tpu_torch.ops.fused_resize_argmax import fused_resize_argmax
 
     h, w = frames.shape[1], frames.shape[2]
     grid = _grid_logits_folded_nchw(folded, frames, compute_dtype,
                                     fused_blocks)
-    grid = grid.float().index_select(
-        1, _class_index(class_indices, grid.device))
-    return fused_resize_argmax(grid.contiguous(), (h, w))
+    return fused_resize_argmax(grid, (h, w), class_indices)
 
 
 def _scores(reduced_logits, labels, class_indices, num_classes):

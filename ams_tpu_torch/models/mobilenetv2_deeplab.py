@@ -281,16 +281,15 @@ def _class_index_cached(class_indices, device) -> torch.Tensor:
 def student_predict_fast(params: Params, frames: torch.Tensor,
                          class_indices, *,
                          compute_dtype=torch.float32) -> torch.Tensor:
-    """Client inference: grid logits, gathered to the class subset, then
-    the fused upsample+argmax kernel; never materialises the
-    full-resolution logits.  Returns (B, H, W) int32 reduced ids."""
+    """Client inference: grid logits, then the fused upsample+argmax
+    kernel over the class subset, which reads the grid in the compute type
+    and layout; never materialises the full-resolution logits.  Returns
+    (B, H, W) int32 reduced ids."""
     from ams_tpu_torch.ops.fused_resize_argmax import fused_resize_argmax
 
     h, w = frames.shape[1], frames.shape[2]
     grid = grid_logits_nchw(params, frames, compute_dtype=compute_dtype)
-    grid = grid.float().index_select(
-        1, _class_index(class_indices, grid.device))
-    return fused_resize_argmax(grid.contiguous(), (h, w))
+    return fused_resize_argmax(grid, (h, w), class_indices)
 
 
 def student_forward(params: Params, frames: torch.Tensor, class_indices, *,

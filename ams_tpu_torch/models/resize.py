@@ -37,6 +37,17 @@ def _lerp_weights(in_size: int, out_size: int):
     return lo, hi, w
 
 
+def lerp_bands(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, 2) int32 [start, end) of the output rows whose ``lo`` is
+    each input row: the rows that lerp between the same two input rows.
+    Contiguous, since ``lo`` never decreases; empty when out_size <
+    in_size skips the row; one row where ``lo == hi``."""
+    lo, _, _ = _lerp_weights(in_size, out_size)
+    g = np.arange(in_size)
+    return np.stack([np.searchsorted(lo, g, "left"),
+                     np.searchsorted(lo, g, "right")], axis=1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=None)
 def _device_lerp(in_size: int, out_size: int, device: torch.device):
     """(lo int64, hi int64, w f32) lerp tables on ``device``, one upload

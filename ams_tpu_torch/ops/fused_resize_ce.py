@@ -15,8 +15,11 @@ grid that needs a gradient, the forward computes the loss and the
 gradient in one launch (``resize_ce_loss_grad``) and the backward only
 scales it, as JAX's ``_fwd``/``_bwd`` do; otherwise the loss-only variant
 runs (``resize_ce_loss``).  ``resize_ce_plan`` cuts a shape into the
-kernel's blocks.  ``resize_ce_plain`` is the plain version, the CPU path
-and the kernel's oracle on the card.
+kernel's blocks, and ``class_plan`` picks the largest cut whose band
+block fits the card's shared memory at a class count: any C up to 829
+runs on an H100.
+``resize_ce_plain`` is the plain version, the CPU path and the kernel's
+oracle on the card.
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ams_tpu_torch.models.resize import _lerp_weights, resize_nchw
+from ams_tpu_torch.models.resize import (
+    _lerp_weights,
+    lerp_bands,
+    resize_nchw,
+)
 from ams_tpu_torch.ops import build
 
 SOURCE = "ams_tpu_torch/csrc/resize_ce.cu"
@@ -36,6 +43,12 @@ REPLACES = ("ams_tpu/ops/fused_resize_ce.py:37 (_make_kernel; custom_vjp "
             "fused_resize_ce :161, _fwd :175, _bwd :184)")
 _MAX_THREADS = 128
 _MAX_TILE_INTERVALS = 64
+# (threads, grid intervals per tile) that class_plan tries in turn: each
+# step needs less shared memory per band block than the one before (the
+# 2C rows of threads + 1 column sums shrink with the threads, the 2C
+# partial columns with the intervals)
+PLAN_STEPS = ((128, 64), (64, 64), (32, 64), (32, 32), (32, 16), (32, 8),
+              (32, 4), (32, 2), (32, 1))
 
 
 def resize_ce_plain(grid: torch.Tensor, labels: torch.Tensor,
@@ -80,19 +93,21 @@ class Plan(NamedTuple):
         return b * len(self.bands) * len(self.tiles)
 
 @functools.lru_cache(maxsize=None)
-def resize_ce_plan(gh: int, gw: int, h: int, w: int) -> Plan:
-    """The kernel's blocks and tables for one shape (see ``Plan``).  Tiles
+def resize_ce_plan(gh: int, gw: int, h: int, w: int,
+                   threads: int = _MAX_THREADS,
+                   max_intervals: int = _MAX_TILE_INTERVALS) -> Plan:
+    """The kernel's blocks and tables for one shape (see ``Plan``), with at
+    most ``threads`` threads per block (a power of two, 32 to 128).  Tiles
     pack whole grid intervals greedily up to ``threads`` columns and
-    ``_MAX_TILE_INTERVALS`` intervals; an interval wider than the block
-    makes a tile of its own, which the block walks in chunks."""
-    ylo, _, _ = _lerp_weights(gh, h)
+    ``max_intervals`` intervals; an interval wider than the block makes a
+    tile of its own, which the block walks in chunks."""
     xlo, xhi, _ = _lerp_weights(gw, w)
-    threads = min(_MAX_THREADS, max(32, 1 << (w - 1).bit_length()))
+    threads = min(threads, max(32, 1 << (w - 1).bit_length()))
     counts = np.bincount(xlo, minlength=gw)
     starts, width = [0], 0
     for g in range(gw):
         if g > starts[-1] and (width + counts[g] > threads
-                               or g - starts[-1] == _MAX_TILE_INTERVALS):
+                               or g - starts[-1] == max_intervals):
             starts.append(g)
             width = 0
         width += counts[g]
@@ -102,9 +117,8 @@ def resize_ce_plan(gh: int, gw: int, h: int, w: int) -> Plan:
     poff = np.concatenate([[0], np.cumsum(ncol)[:-1]])
     tiles = np.stack([g0, g1, np.searchsorted(xlo, g0, "left"),
                       np.searchsorted(xlo, g1, "left"), poff], axis=1)
-    gy, gx = np.arange(gh), np.arange(gw)
-    bands = np.stack([np.searchsorted(ylo, gy, "left"),
-                      np.searchsorted(ylo, gy, "right")], axis=1)
+    gx = np.arange(gw)
+    bands = lerp_bands(gh, h)
     xr = np.stack([np.searchsorted(xlo, gx, "left"),
                    np.searchsorted(xlo, gx, "right"),
                    np.searchsorted(xhi, gx, "left"),
@@ -115,22 +129,59 @@ def resize_ce_plan(gh: int, gw: int, h: int, w: int) -> Plan:
                 int(ncol.max()), int(ncol.sum()))
 
 
+def class_plan(c: int, gh: int, gw: int, h: int, w: int, smem_bytes,
+               smem_limit: int) -> Plan:
+    """The plan of the first step of ``PLAN_STEPS`` whose band block, with
+    the gradient, needs at most ``smem_limit`` bytes of shared memory at
+    ``c`` classes, counted by ``smem_bytes(c, threads, ncol_max, 1)``: the
+    kernel's own ``resize_ce_smem_bytes`` on the card.  While the first
+    step fits, the plan is ``resize_ce_plan``'s default.  Raises
+    ``ValueError`` past the last step: above 829 classes on an H100, at
+    any shape (64 + 70 C floats at 32 threads, one interval per tile)."""
+    for threads, intervals in PLAN_STEPS:
+        plan = resize_ce_plan(gh, gw, h, w, threads, intervals)
+        need = smem_bytes(c, plan.threads, plan.ncol_max, 1)
+        if need <= smem_limit:
+            return plan
+    raise ValueError(
+        "resize_ce: %d classes need %d B of shared memory per band block "
+        "at %d threads and one grid interval per tile (grid %dx%d -> %dx%d),"
+        " more than the %d B a block may use" % (c, need, plan.threads, gh,
+                                                 gw, h, w, smem_limit))
+
+
 @functools.lru_cache(maxsize=None)
-def _tables(gh: int, gw: int, h: int, w: int, device: torch.device):
-    """Device copies of the lerp tables and the plan's tables, one upload
-    per shape: (yw, xlo, xhi, xw, bands, tiles, tile_of, xr)."""
+def card_plan(c: int, gh: int, gw: int, h: int, w: int,
+              device_index: int) -> Plan:
+    """``class_plan`` on CUDA device ``device_index``, by the built
+    kernel's shared-memory count and the device's limit: the plan the
+    launches use."""
+    lib = library()
+    limit = lib.resize_ce_smem_limit(device_index)
+    if limit < 0:
+        raise RuntimeError("resize_ce: cannot read the shared memory limit "
+                           "of CUDA device %d" % device_index)
+    return class_plan(c, gh, gw, h, w, lib.resize_ce_smem_bytes, limit)
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(c: int, gh: int, gw: int, h: int, w: int, device: torch.device):
+    """The card's plan at ``c`` classes and device copies of the lerp
+    tables and the plan's tables, one upload per shape: (plan, (yw, xlo,
+    xhi, xw, bands, tiles, tile_of, xr))."""
     _, _, yw = _lerp_weights(gh, h)
     xlo, xhi, xw = _lerp_weights(gw, w)
-    plan = resize_ce_plan(gh, gw, h, w)
+    plan = card_plan(c, gh, gw, h, w, device.index)
     host = (yw, xlo, xhi, xw, plan.bands, plan.tiles, plan.tile_of, plan.xr)
     with torch.inference_mode(False):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in host)
+        return plan, tuple(torch.from_numpy(np.ascontiguousarray(a))
+                           .to(device) for a in host)
 
 
 def library():
-    """The built kernel, its entry points typed: ``resize_ce_launch`` and
-    ``resize_ce_smem_bytes`` (a band block's shared memory, in bytes)."""
+    """The built kernel, its entry points typed: ``resize_ce_launch``,
+    ``resize_ce_smem_bytes`` (a band block's shared memory, in bytes) and
+    ``resize_ce_smem_limit`` (the most a block may use on a device)."""
     lib = build.load("resize_ce")
     if lib.resize_ce_launch.argtypes is None:
         lib.resize_ce_launch.argtypes = [ctypes.c_void_p] * 15 \
@@ -138,14 +189,15 @@ def library():
         lib.resize_ce_launch.restype = ctypes.c_int
         lib.resize_ce_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.resize_ce_smem_bytes.restype = ctypes.c_size_t
+        lib.resize_ce_smem_limit.argtypes = [ctypes.c_int]
+        lib.resize_ce_smem_limit.restype = ctypes.c_int
     return lib
 
 
 def _launch(grid, labels, weights, out_hw, want_grad):
     b, c, gh, gw = grid.shape
     h, w = int(out_hw[0]), int(out_hw[1])
-    plan = resize_ce_plan(gh, gw, h, w)
-    tables = _tables(gh, gw, h, w, grid.device)
+    plan, tables = _tables(c, gh, gw, h, w, grid.device)
     dev = grid.device
     lpart = torch.empty(2 * plan.blocks(b), dtype=torch.float32, device=dev)
     out = torch.empty(2, dtype=torch.float32, device=dev)

@@ -14,10 +14,12 @@ the card:
    turns a hang into a traceback and a non-zero exit;
 1. builds the kernels from ams_tpu_torch/csrc with nvcc (all in parallel);
 2. holds each kernel against its plain PyTorch version at the paths'
-   shapes and times kernel, plain version and the nearest library call
-   (resize+argmax; resize+CE, loss only and loss with gradient; the fused
-   MBConv block through K3's and K4's wrappers, against the unfused bf16
-   block);
+   shapes, by CUDA events per call and on the device by torch.profiler,
+   beside the plain version and the nearest library call (resize+argmax
+   at eight shapes, f32 NCHW and bf16 channels-last with a class table,
+   each run twice for the same bits; resize+CE, loss only and loss with
+   gradient, up to 256 classes; the fused MBConv block through K3's and
+   K4's wrappers, against the unfused bf16 block);
 3. the f32 client path, with every launch counter set to 0 just before it:
    predict_input on full-class and class-subset clients, delta apply on the
    float16 and int8d wires, predict again, BN-folded export, reload,
@@ -36,7 +38,10 @@ the card:
    before it: the facade in bf16 (predict, a float16 delta, fold, reload,
    predict and score), then the folded fast path with unfused, fused (K3)
    and banded (K4) blocks, held against the unfused bf16 ids and the f32
-   client's, with each variant's launches per forward and frames/s;
+   client's, with each variant's launches per forward and frames/s; and
+   the kernels of five fast forwards (folded and unfolded, bf16 and f32)
+   in launch order, checked to run K1 straight after the forward's last
+   kernel, with no cast, gather or copy between;
 6. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
@@ -234,62 +239,171 @@ def near_ties(grid, out_hw):
     import torch
     from ams_tpu_torch.models.resize import resize_nchw
 
-    top2 = torch.topk(resize_nchw(grid, out_hw), 2, dim=1).values
+    full = resize_nchw(grid, out_hw)
+    if full.shape[1] < 2:             # one class: no ties
+        return torch.zeros_like(full[:, 0], dtype=torch.bool)
+    top2 = torch.topk(full, 2, dim=1).values
     return (top2[:, 0] - top2[:, 1]) < TIE_MARGIN
 
 
-def resize_argmax_bound_ms(b, c, gh, gw, h, w):
+def resize_argmax_bound_ms(b, c, gh, gw, h, w, elem_bytes=4):
     """Least time for the function on an H100 SXM: each input read once
-    and each output written once, over 3.35 TB/s; or the operations of
-    the separable lerp (a horizontal lerp per grid row and class, a
-    vertical lerp per pixel and class, 3 ops each) plus one compare per
-    pixel and class, over 67 TFLOP/s f32.  The larger one bounds."""
-    nbytes = b * c * gh * gw * 4 + b * h * w * 4 + (3 * h + 3 * w) * 4
+    (the ``c`` class planes the argmax reads, of ``elem_bytes`` each, and
+    the lerp tables) and each output written once, over 3.35 TB/s; or the
+    operations of the separable lerp (a horizontal lerp per grid row and
+    class, a vertical lerp per pixel and class, 3 ops each) plus one
+    compare per pixel and class, over 67 TFLOP/s f32.  The larger one
+    bounds."""
+    nbytes = b * c * gh * gw * elem_bytes + b * h * w * 4 \
+        + (3 * h + 3 * w) * 4
     ops = 3 * b * c * (gh * w + h * w) + b * c * h * w
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def resize_argmax_plan_line(plan, b):
+    """One line on how K1's plan cuts a shape: blocks, threads, tiles and
+    the rows of its band runs (runs of equal counts written once with
+    their length)."""
+    import itertools
+
+    rows = [int(r) for r in plan.bands[:, 3] - plan.bands[:, 2]]
+    counted = [(k, len(list(g))) for k, g in itertools.groupby(rows)]
+    return ("%d blocks (%d tiles x %d band runs x %d images) of %d threads;"
+            " rows per run %s" % (
+                plan.blocks(b), plan.n_tiles, len(plan.bands), b,
+                plan.threads, ", ".join("%d x%d" % (k, n) if n > 1
+                                        else str(k) for k, n in counted)))
+
+
 def phase_kernel_checks(dev):
-    """Phase 2: the resize+argmax kernel against its plain version."""
+    """Phase 2, K1: the resize+argmax kernel against its plain version at
+    the client's shapes (f32 NCHW as the f32 forward leaves it; bf16
+    channels-last with the exp-25 class table, as the bf16 folded forward
+    hands it over) and at the edges of its plan (96 classes, past the 32
+    held in registers; one class; an output below the grid; W=1); each
+    case run twice for the same bits, and timed per call by CUDA events
+    (``ms``) and on the device by torch.profiler (``device_ms``) beside
+    the plain version, the library call and the bound."""
     import torch
     import torch.nn.functional as F
+    from ams_tpu_torch import configs
     from ams_tpu_torch.ops import fused_resize_argmax as fra
 
-    cases = [("client, 19 classes", (B, 19, 33, 65, H, W)),
-             ("client, exp %d subset" % SUBSET_EXP, (B, 6, 33, 65, H, W)),
-             ("ragged", (3, 7, 17, 33, 257, 513))]
+    f32, bf16 = torch.float32, torch.bfloat16
+    exp_ci = tuple(int(k) for k in configs.class_indices(SUBSET_EXP))
+    # (label, (b, c, gh, gw, h, w), dtype, channels-last, class index)
+    cases = [("client, 19 classes", (B, 19, 33, 65, H, W), f32, False,
+              None),
+             ("client, exp %d subset" % SUBSET_EXP, (B, 6, 33, 65, H, W),
+              f32, False, None),
+             ("ragged", (3, 7, 17, 33, 257, 513), f32, False, None),
+             ("bf16 channels-last, exp %d class table" % SUBSET_EXP,
+              (B, 19, 33, 65, H, W), bf16, True, exp_ci),
+             ("96 classes, above the register bound",
+              (2, 96, 33, 65, H, W), f32, False, None),
+             ("one class", (2, 1, 33, 65, H, W), f32, False, None),
+             ("output below the grid", (2, 19, 33, 65, 16, 32), f32, False,
+              None),
+             ("W=1", (2, 7, 17, 33, 257, 1), f32, False, None)]
     gen = torch.Generator().manual_seed(SEED)
     out = []
-    for label, (b, c, gh, gw, h, w) in cases:
-        grid = (torch.randn(b, c, gh, gw, generator=gen) * 3).to(dev)
-        got = fra.fused_resize_argmax(grid, (h, w))
-        want = fra.resize_argmax_plain(grid, (h, w))
+    for label, (b, c, gh, gw, h, w), dtype, cl, ci in cases:
+        grid = (torch.randn(b, c, gh, gw, generator=gen) * 3).to(dev) \
+            .to(dtype)
+        if cl:
+            grid = grid.contiguous(memory_format=torch.channels_last)
+        plan = fra.resize_argmax_plan(gh, gw, h, w)
+        log("  resize_argmax %s plan: %s"
+            % (label, resize_argmax_plan_line(plan, b)))
+        ci_t = None if ci is None else torch.tensor(ci, device=dev)
+        sel = grid.float()
+        if ci is not None:
+            sel = sel.index_select(1, ci_t)
+        n_sel = sel.shape[1]
+
+        def kernel():
+            return fra.fused_resize_argmax(grid, (h, w), ci)
+
+        def plain():
+            return fra.resize_argmax_plain(grid, (h, w), ci)
+
+        def library():
+            g = grid.float()
+            if ci is not None:
+                g = g.index_select(1, ci_t)
+            return F.interpolate(g, size=(h, w), mode="bilinear",
+                                 align_corners=True).argmax(1)
+
+        n0 = fra.fused_resize_argmax.launches
+        got, got2 = kernel(), kernel()
+        want = plain()
         torch.cuda.synchronize()
-        ties = near_ties(grid, (h, w))
+        check(fra.fused_resize_argmax.launches == n0 + 2,
+              "resize_argmax: two calls launched %d kernels in case %s"
+              % (fra.fused_resize_argmax.launches - n0, label))
+        check(got.shape == (b, h, w) and got.dtype == torch.int32,
+              "resize_argmax %s: ids %s %s" % (label, tuple(got.shape),
+                                               got.dtype))
+        ties = near_ties(sel, (h, w))
         diff = got != want
         mism, off = int(diff.sum()), int((diff & ~ties).sum())
         max_err = int((got.long() - want.long()).abs().max())
-        k_ms = cuda_ms(lambda: fra.fused_resize_argmax(grid, (h, w)), 100)
-        p_ms = cuda_ms(lambda: fra.resize_argmax_plain(grid, (h, w)), 10)
-        lib_ms = cuda_ms(lambda: F.interpolate(
-            grid, size=(h, w), mode="bilinear",
-            align_corners=True).argmax(1), 10)
-        bound, bound_by = resize_argmax_bound_ms(b, c, gh, gw, h, w)
+        same_bits = bool(torch.equal(got, got2))
+        times = {}
+        for name, fn, n in (("kernel", kernel, 100), ("plain", plain, 10),
+                            ("library", library, 10)):
+            times[name] = (cuda_ms(fn, n), device_ms(fn, n))
+        bound, bound_by = resize_argmax_bound_ms(
+            b, n_sel, gh, gw, h, w, grid.element_size())
         row = {"case": label, "shape": [b, c, gh, gw, h, w],
+               "dtype": str(dtype).replace("torch.", ""),
+               "channels_last": cl, "classes": n_sel,
+               "plan": {"blocks": plan.blocks(b), "threads": plan.threads,
+                        "tiles": plan.n_tiles, "band_runs": len(plan.bands)},
                "mismatches": mism, "mismatches_off_ties": off,
                "near_tie_pixels": int(ties.sum()), "max_abs_err": max_err,
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               "same_bits": same_bits,
+               "kernel_ms": times["kernel"][0],
+               "device_ms": times["kernel"][1],
+               "plain_ms": times["plain"][0],
+               "plain_device_ms": times["plain"][1],
+               "library_ms": times["library"][0],
+               "library_device_ms": times["library"][1],
                "bound_ms": bound, "bound_by": bound_by}
-        log("  %s %s: mismatches %d (off ties %d, near-tie pixels %d); "
-            "kernel %.4f ms, plain %.4f ms, library %.4f ms, bound %.4f ms "
-            "(%s)" % (label, row["shape"], mism, off, row["near_tie_pixels"],
-                      k_ms, p_ms, lib_ms, bound, bound_by))
+        log("  resize_argmax %s %s %s%s: mismatches %d (off ties %d, "
+            "near-tie pixels %d); same bits on rerun %s"
+            % (label, row["shape"], row["dtype"],
+               " channels-last" if cl else "", mism, off,
+               row["near_tie_pixels"], same_bits))
+        log("    ms per call by events / on the device: kernel %.4f / %.4f, "
+            "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
+            % (times["kernel"] + times["plain"] + times["library"]
+               + (bound, bound_by)))
         check(off == 0, "resize_argmax disagrees with its plain version off "
               "ties in case %s: %d pixels" % (label, off))
+        check(same_bits, "resize_argmax: two runs differ in case %s" % label)
         out.append(row)
     return out
+
+
+def kernels_in_order(fn):
+    """The device kernels of one ``fn()`` call in launch order
+    (torch.profiler), after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(events, "torch.profiler recorded no device kernels")
+    events.sort(key=lambda e: e.time_range.start)
+    return [e.name for e in events]
 
 
 def phase_main_path(dev):
@@ -528,7 +642,8 @@ def phase_resize_ce_checks(dev):
              ("output below the grid", (2, 19, 33, 65, 16, 32), 0.8),
              ("wide", (2, 21, 65, 129, 512, 2048), 0.8),
              ("96 classes, above the register bound",
-              (2, 96, 17, 33, SH, SW), 0.8)]
+              (2, 96, 17, 33, SH, SW), 0.8),
+             ("256 classes, a smaller plan", (1, 256, 17, 33, SH, SW), 0.8)]
     gen = torch.Generator().manual_seed(SEED + 7)
     out = []
     for label, (b, c, gh, gw, h, w), p_valid in cases:
@@ -537,7 +652,7 @@ def phase_resize_ce_checks(dev):
                                dtype=torch.int32).to(dev)
         weights = (torch.rand(b, h, w, generator=gen) < p_valid).float() \
             .to(dev)
-        plan = frc.resize_ce_plan(gh, gw, h, w)
+        plan = frc.card_plan(c, gh, gw, h, w, grid.device.index)
         smem = [smem_fn(c, plan.threads, plan.ncol_max, want_grad)
                 for want_grad in (0, 1)]
         log("  resize_ce %s plan: %s" % (label,
@@ -1229,12 +1344,17 @@ def phase_bf16_client(dev, host):
     "banded" (K4), held against the unfused bf16 ids and the f32 client's,
     with each variant's frames/s; plus one banded forward at 511x1023,
     whose even stem grid takes K4's stride-2 blocks too."""
+    import re
+
     import numpy as np
     import torch
     from ams_tpu_torch import configs
-    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.convert import params_from_numpy
     from ams_tpu_torch.models import frozen as tf
-    from ams_tpu_torch.models.mobilenetv2_deeplab import trainable_names
+    from ams_tpu_torch.models.mobilenetv2_deeplab import (
+        student_predict_fast,
+        trainable_names,
+    )
     from ams_tpu_torch.models.resize import resize_nchw
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
@@ -1418,6 +1538,54 @@ def phase_bf16_client(dev, host):
         for line in lines:
             log("    " + line)
 
+    # K1 reads the grid as the forward leaves it: between the forward's
+    # last kernel (the logits' bias add) and K1 runs no cast, gather or
+    # copy, on the folded and the unfolded fast paths, bf16 and f32
+    unfolded = params_from_numpy(host, dev)
+    sub = tuple(int(k) for k in configs.class_indices(SUBSET_EXP))
+    handover = {}
+    for name, fn in (
+            ("folded bf16 fused K3, 19 classes",
+             lambda: tf.student_predict_fast_folded(
+                 fp, staged, ci, compute_dtype=bf16, fused_blocks=True)),
+            ("folded bf16 unfused, exp %d" % SUBSET_EXP,
+             lambda: tf.student_predict_fast_folded(fp, staged, sub,
+                                                    compute_dtype=bf16)),
+            ("folded f32, exp %d" % SUBSET_EXP,
+             lambda: tf.student_predict_fast_folded(fp, staged, sub)),
+            ("unfolded bf16, exp %d" % SUBSET_EXP,
+             lambda: student_predict_fast(unfolded, staged, sub,
+                                          compute_dtype=bf16)),
+            ("unfolded f32, exp %d" % SUBSET_EXP,
+             lambda: student_predict_fast(unfolded, staged, sub))):
+        # torch.profiler drops kernels now and then (a forward's profile
+        # once read half its device time): profile again, up to twice,
+        # when the trace holds no K1 at all
+        for tries in range(1, 4):
+            with torch.inference_mode():
+                names = kernels_in_order(fn)
+            if any("resize_argmax" in n for n in names):
+                break
+        last = len(names) - 1
+        prev = names[last - 1] if last > 0 else ""
+        handover[name] = {"kernels": len(names),
+                          "kernel_names": len(set(names)),
+                          "before_k1": prev[:160], "profiles": tries}
+        log("  %s: %d kernel launches of %d names (profile %d); K1 last: %s;"
+            " the kernel before it: %s"
+            % (name, len(names), len(set(names)), tries,
+               "resize_argmax" in names[last], prev[:110]))
+        check("resize_argmax" in names[last],
+              "%s: the forward's last kernel is %s, not K1"
+              % (name, names[last][:110]))
+        check(not re.search(r"copy|index_?select|gather|memcpy", prev,
+                            re.IGNORECASE),
+              "%s: a cast, gather or copy runs before K1: %s"
+              % (name, prev[:110]))
+    log("  the fused bf16 forward runs %d kernel names (42 when the grid "
+        "was cast and gathered before K1)"
+        % handover["folded bf16 fused K3, 19 classes"]["kernel_names"])
+
     # 511x1023 frames: the stem grid is 256x512, so the banded routing
     # takes the stride-2 blocks expanded_conv_1 and _3 as well
     oh, ow = ODD_HW
@@ -1449,7 +1617,7 @@ def phase_bf16_client(dev, host):
     check(launches["mbconv"] > 0 and launches["mbconv_banded"] > 0
           and launches["resize_argmax"] > 0,
           "a kernel of the bf16 client path was not launched: %s" % launches)
-    return launches, rows, rates
+    return launches, rows, rates, handover
 
 
 def main() -> int:
@@ -1501,7 +1669,8 @@ def main() -> int:
 
     log("phase 5: bf16 folded client (%dx%dx%d uint8 frames; unfused, fused "
         "K3 and banded K4 blocks)" % (B, H, W))
-    bf16_launches, bf16_rows, bf16_rates = phase_bf16_client(dev, host)
+    bf16_launches, bf16_rows, bf16_rates, handover = phase_bf16_client(
+        dev, host)
 
     main_case = cases[0]
     kernels = [{
@@ -1512,9 +1681,18 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"], "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "timed_by": "ms: CUDA events over back-to-back calls, as for every "
+                    "kernel; *device_ms: torch.profiler's kernel durations",
+        "device_ms": main_case["device_ms"],
+        "plain_device_ms": main_case["plain_device_ms"],
+        "library_device_ms": main_case["library_device_ms"],
+        "same_bits_on_rerun": all(c["same_bits"] for c in cases),
+        "plan": main_case["plan"],
         "mismatches": main_case["mismatches"],
         "mismatches_off_ties": sum(c["mismatches_off_ties"] for c in cases),
         "server_path_launches": server_launches["resize_argmax"],
+        "bf16_path_launches": bf16_launches["resize_argmax"],
+        "handover": handover,
         "shape": main_case["shape"], "cases": cases}]
     ce_main = ce_cases[0]
     for part, key in (("loss", "loss_abs_err"),
@@ -1583,6 +1761,12 @@ def main() -> int:
                ev["client_miou_before"], ev["client_miou_after"]))
     log("server device ms per iteration: fused loss %.3f, gather loss %.3f"
         % (per_iter[True], per_iter[False]))
+    for c in cases:
+        log("resize_argmax %s %s: %.4f ms per call (%.4f on the device; "
+            "bound %.4f); plain %.4f / %.4f, library %.4f / %.4f; plan %s"
+            % (c["case"], c["shape"], c["kernel_ms"], c["device_ms"],
+               c["bound_ms"], c["plain_ms"], c["plain_device_ms"],
+               c["library_ms"], c["library_device_ms"], c["plan"]))
     for c in ce_cases:
         log("resize_ce %s %s: loss %.4f ms, loss+grad %.4f ms per call "
             "(%.4f, %.4f on the device; bounds %.4f, %.4f); plan %s"

@@ -111,9 +111,9 @@ def test_cpu_wrapper_routes_to_the_plain_version():
         frc.fused_resize_ce(g[0], lab, wt, (33, 65))
 
 
-def emulate_kernel(grid, labels, weights, out_hw):
+def emulate_kernel(grid, labels, weights, out_hw, plan=None):
     """numpy, in float64: the CUDA kernel's blocks and sums, built on the
-    wrapper's own plan.  One block per (image, band, tile): per column, the
+    wrapper's own plan (or ``plan``).  One block per (image, band, tile): per column, the
     band's rows in order into a top and a bottom sum per class; per chunk,
     the x range of each (class, side, grid column) into the tile's partial;
     then each grid cell sums its (band, side) partials in the finishing
@@ -121,7 +121,7 @@ def emulate_kernel(grid, labels, weights, out_hw):
     total, unnormalized gradient)."""
     b, c, gh, gw = grid.shape
     h, w = out_hw
-    plan = frc.resize_ce_plan(gh, gw, h, w)
+    plan = plan or frc.resize_ce_plan(gh, gw, h, w)
     _, _, yw = _lerp_weights(gh, h)
     xlo, xhi, xw = _lerp_weights(gw, w)
     yw, xw = yw.astype(np.float64), xw.astype(np.float64)
@@ -263,7 +263,10 @@ def test_kernel_sum_order_reproduces_loss_and_gradient(name):
     same loss in float64 (rtol 1e-5, atol 1e-9: the same sums in another
     order; float32 autograd would add its own rounding over hundreds of
     terms of either sign per grid cell)."""
-    b, nc, gh, gw, h, w = PLAN_CASES[name]
+    _check_emulation(*PLAN_CASES[name])
+
+
+def _check_emulation(b, nc, gh, gw, h, w, plan=None):
     grid, labels, weights = _case(7, b, gh, gw, nc, h, w)
     labels[0, 0, :3] = [-1, nc, nc + 5]         # out of range: CE 0, no grad
     nchw = np.ascontiguousarray(grid.transpose(0, 3, 1, 2))
@@ -277,10 +280,80 @@ def test_kernel_sum_order_reproduces_loss_and_gradient(name):
     ce = -(onehot * torch.log_softmax(full, dim=1)).sum(1)
     (want,) = torch.autograd.grad((ce * wt.double()).sum(), g64)
     total = max(float(weights.sum()), 1.0)
-    e_loss, e_total, e_grad = emulate_kernel(nchw, labels, weights, (h, w))
+    e_loss, e_total, e_grad = emulate_kernel(nchw, labels, weights, (h, w),
+                                             plan)
     assert e_total == total
     np.testing.assert_allclose(e_loss, plain, rtol=1e-5)
     np.testing.assert_allclose(e_grad, want.numpy(), rtol=1e-5, atol=1e-9)
+
+
+def _smem_bytes(c, threads, ncol_max, want_grad):
+    """Stand-in for the kernel's ``resize_ce_smem_bytes`` (its
+    ``band_smem_floats`` in bytes), since the CPU has no kernel to ask."""
+    return 4 * (threads + want_grad * (threads + 2 * c * (threads + 1)
+                                       + 2 * c * ncol_max))
+
+
+H100_SMEM_PER_BLOCK = 232448    # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+def _step_of(plan, gh, gw, h, w):
+    """The first of PLAN_STEPS whose (cached) plan is ``plan``."""
+    return next(i for i, st in enumerate(frc.PLAN_STEPS)
+                if frc.resize_ce_plan(gh, gw, h, w, *st) is plan)
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_CASES))
+def test_class_plan_shrinks_with_the_class_count(name):
+    """class_plan keeps the default plan while its band block fits (every
+    count up to 96 here), then steps down to fewer threads and intervals
+    per tile as C grows, never back up; every plan fits the card's
+    shared memory and keeps whole grid intervals per tile; 512 classes
+    fit at every shape."""
+    _, _, gh, gw, h, w = PLAN_CASES[name]
+    xlo, _, _ = _lerp_weights(gw, w)
+    default = frc.resize_ce_plan(gh, gw, h, w)
+    last = 0
+    for c in (1, 6, 19, 32, 33, 96, 128, 150, 209, 256, 384, 512, 640):
+        plan = frc.class_plan(c, gh, gw, h, w, _smem_bytes,
+                              H100_SMEM_PER_BLOCK)
+        assert _smem_bytes(c, plan.threads, plan.ncol_max, 1) \
+            <= H100_SMEM_PER_BLOCK
+        step = _step_of(plan, gh, gw, h, w)
+        assert step >= last
+        last = step
+        if c <= 96:
+            assert step == 0
+            assert plan.threads == default.threads
+            np.testing.assert_array_equal(plan.tiles, default.tiles)
+        g0, g1, xs, xe, _ = plan.tiles.T
+        np.testing.assert_array_equal(np.concatenate([[0], g1[:-1]]), g0)
+        cols = np.concatenate([np.arange(a, z) for a, z in zip(xs, xe)])
+        np.testing.assert_array_equal(cols, np.arange(w))
+        for t in range(len(plan.tiles)):
+            x = np.arange(xs[t], xe[t])
+            assert ((xlo[x] >= g0[t]) & (xlo[x] < g1[t])).all()
+    assert frc.PLAN_STEPS[last][0] == 32 or last == 0
+
+
+def test_class_plan_raises_past_its_last_step():
+    """Past the smallest step the planner names the class count and the
+    bytes; the server round's shape takes up to 829 classes on an H100
+    (64 + 70 C floats at 32 threads, one interval per tile)."""
+    kw = dict(smem_bytes=_smem_bytes, smem_limit=H100_SMEM_PER_BLOCK)
+    plan = frc.class_plan(829, 17, 33, 256, 512, **kw)
+    assert plan.threads == 32
+    with pytest.raises(ValueError, match="830 classes"):
+        frc.class_plan(830, 17, 33, 256, 512, **kw)
+
+
+def test_smallest_plan_reproduces_loss_and_gradient():
+    """The kernel's sums on the last step's plan (32 threads, one grid
+    interval per tile), as class_plan gives it to many classes, at 40
+    classes: the same bars as the default plan's emulation."""
+    b, nc, gh, gw, h, w = 2, 40, 5, 9, 64, 128
+    _check_emulation(b, nc, gh, gw, h, w,
+                     frc.resize_ce_plan(gh, gw, h, w, *frc.PLAN_STEPS[-1]))
 
 
 def test_autograd_node_launches_once_and_its_backward_none(monkeypatch):
