@@ -42,7 +42,19 @@ the card:
    the kernels of five fast forwards (folded and unfolded, bf16 and f32)
    in launch order, checked to run K1 straight after the forward's last
    kernel, with no cast, gather or copy between;
-6. one JSON line of kernel numbers, the wall-clock, and as the last line
+6. the emulated experiment, with every launch counter set to 0 just
+   before each run: a bands clip written as a frame directory (8 s of
+   512x1024 frames at 10 fps, exp 90), then `python -m
+   ams_tpu_torch.cli.run` with run.py's defaults and --mode early
+   (cutoff 6 s: one training event of 200 iterations) and --mode
+   pretrained, on the card; every artifact checked, one update, the uplink
+   and downlink bits above 0, finite per-frame scores, no kernel launched
+   (the JAX package's routing: the client keeps its logits, the round uses
+   the gather loss), the card's client against the CPU client on the same
+   artifacts, and the PNG bytes of two probe images against OpenCV's (the
+   card's zlib); with the spans of both runs, decode's share of each loop,
+   the client's frames/s and both runs' mIoU;
+7. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -77,6 +89,19 @@ MINI_BATCH = 10          # run.py --batch_size
 ROUND_ITERS = 200        # run.py --iter
 LR = 1e-3                # run.py --lr
 COORD_FRAC = 0.1         # run.py --coord_fraction
+# the emulated experiment (phase 6): run.py's defaults, one training event
+EXP_CLIP = "90-bands"     # exp 90: 8 s registered length, 5 of 19 classes
+EXP_FPS, EXP_HW = 10, (512, 1024)   # frames 2x the --height 256 grid
+EXP_CUTOFF = 6           # --early_cutoff_time: events at seconds 0 and 6
+# sizes and SHA-256 of cv2.imencode(".png", ·) of png_probe_images(), as
+# tests/test_torch_data.py records them from OpenCV: the card's zlib must
+# reproduce them for the uplink's bits to be cv2's
+PNG_PROBE = {
+    "frame": (195584, "9d979909ad33c35e1217cb93b33da02c"
+                      "102723114117a8e7da00d184ade90298"),
+    "label": (11736, "bc62c4cf6b59a0c24f4342326eeecc4a"
+                     "a52811ef5daa64603e36a39c18e9f1f4"),
+}
 
 
 def reset_counters():
@@ -89,6 +114,20 @@ def reset_counters():
     fra.fused_resize_argmax.launches = 0
     frc.resize_ce_loss.launches = frc.resize_ce_loss_grad.launches = 0
     fm.mbconv_block.launches = fb.mbconv_banded.launches = 0
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    from ams_tpu_torch.ops import fused_mbconv as fm
+    from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+    from ams_tpu_torch.ops import fused_resize_ce as frc
+
+    return {"resize_argmax": fra.fused_resize_argmax.launches,
+            "resize_ce_loss": frc.resize_ce_loss.launches,
+            "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
+            "mbconv": fm.mbconv_block.launches,
+            "mbconv_banded": fb.mbconv_banded.launches}
 
 
 def expected_mbconv_launches(h, w, banded_min_hw=96 * 96):
@@ -201,13 +240,19 @@ def device_ms(fn, iters):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    # torch.profiler has come back empty on the card now and then: a
+    # profile without device time is taken again, up to three in all
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / iters
+        log("  torch.profiler recorded no device time; profiling again")
+    check(False, "torch.profiler recorded no device time in 3 profiles")
 
 
 def device_breakdown(fn, top=8):
@@ -1620,6 +1665,203 @@ def phase_bf16_client(dev, host):
     return launches, rows, rates, handover
 
 
+def png_probe_images(seed=SEED):
+    """A fixed 256x512 BGR frame and label map from integer arithmetic and
+    the legacy RandomState stream only, so every numpy makes the same
+    pixels."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:256, 0:512]
+    base = np.stack([(xx * 3 + yy) // 4, (yy * 5 + xx // 3) // 6,
+                     (xx + yy * 2) // 5], -1) % 256
+    frame = (base + rng.randint(0, 9, base.shape)).clip(0, 255).astype(
+        np.uint8)
+    label = ((yy + xx // 3) // 19 % 19).astype(np.uint8)
+    label[rng.randint(0, 50, label.shape) == 0] = 255
+    return {"frame": frame, "label": label}
+
+
+def phase_experiment(dev):
+    """Phase 6: the emulated experiment through the CLI, early then
+    pretrained, on a frame directory written by the port."""
+    import hashlib
+    import zlib
+
+    import numpy as np
+    import torch
+    from ams_tpu_torch.cli import run as cli_run
+    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.data.image import png_encode, png_read
+    from ams_tpu_torch.data.video import (
+        frame_path,
+        frame_to_rgb,
+        write_synthetic_clip,
+    )
+    from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
+    from ams_tpu_torch.runtime.analytics import plot_miou_mean
+    from ams_tpu_torch.runtime.client import infer_output
+    from ams_tpu_torch.runtime.config import RunConfig, get_save_dir
+    from ams_tpu_torch.utils.trace import GLOBAL_TIMER
+
+    log("  zlib %s (compiled against %s)" % (zlib.ZLIB_RUNTIME_VERSION,
+                                            zlib.ZLIB_VERSION))
+    for name, img in png_probe_images().items():
+        blob = png_encode(img)
+        size, sha = len(blob), hashlib.sha256(blob).hexdigest()
+        log("  PNG probe %s: %d B, sha256 %s" % (name, size, sha))
+        check((size, sha) == PNG_PROBE[name],
+              "PNG probe %s: %d B %s, cv2 wrote %d B %s (zlib differs)"
+              % (name, size, sha, *PNG_PROBE[name]))
+
+    tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_exp_")
+    try:
+        t0 = time.perf_counter()
+        clip = os.path.join(tmp, EXP_CLIP)
+        gt = os.path.join(tmp, "gt") + "/"
+        write_synthetic_clip(clip, seconds=8, fps=EXP_FPS, size_hw=EXP_HW,
+                             seed=SEED, gt_dir=gt, style="bands")
+        n_frames = 8 * EXP_FPS
+        log("  wrote %d %dx%d BGR frames and labels in %.2f s"
+            % (n_frames, EXP_HW[0], EXP_HW[1], time.perf_counter() - t0))
+        # seeded random weights, BN statistics from the clip's frames
+        params = init_student_params(SEED, device=dev)
+        calib = np.stack([frame_to_rgb(png_read(frame_path(clip, i)),
+                                       (SH, SW)) for i in range(0, 80, 10)])
+        calibrate_bn(params, torch.from_numpy(calib).to(dev))
+        os.makedirs(os.path.join(tmp, "ckpt"))
+        ckpt = os.path.join(tmp, "ckpt", "student.npz")
+        np.savez(ckpt, **params_to_numpy(params))
+
+        out = os.path.join(tmp, "out") + "/"
+        common = ["--input_video", clip, "--gt_video", gt,
+                  "--student_checkpoint", ckpt, "--output_dir", out,
+                  "--height", str(SH), "--batch_size", str(MINI_BATCH),
+                  "--send_period", "2", "--train_period", "2",
+                  "--memory_len", "250", "--iter", str(ROUND_ITERS),
+                  "--train_strategy", "coord_desc_auto",
+                  "--coord_fraction", str(COORD_FRAC)]
+        runs = {}
+        for mode, extra, label in (
+                ("early", ["--early_cutoff_time", str(EXP_CUTOFF)],
+                 "early%d_f2" % EXP_CUTOFF),
+                ("pretrained", [], "pretrained")):
+            reset_counters()
+            GLOBAL_TIMER.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_run.main(["--mode", mode] + extra + common)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            log("  %s: %.2f s wall; launches %s" % (mode, wall, launches))
+            check(not any(launches.values()),
+                  "%s: a kernel launched in the loop: %s (JAX's routing "
+                  "runs none: the client keeps its logits, the round uses "
+                  "the gather loss)" % (mode, launches))
+            log("  spans:\n" + "\n".join(
+                "    " + line for line in GLOBAL_TIMER.summary().split("\n")))
+            runs[mode] = dict(label=label, wall=wall,
+                              totals=dict(GLOBAL_TIMER.totals),
+                              counts=dict(GLOBAL_TIMER.counts))
+        cfg = RunConfig(input_video=clip, gt_video=gt,
+                        student_checkpoint=ckpt, output_dir=out, height=SH,
+                        send_period=2)
+
+        def results(label):
+            return get_save_dir(cfg, label + "_results")
+
+        early = results(runs["early"]["label"])
+        names = ["_fps_client.npy", "_bw_uplink.npy", "_uplink_exact.npy",
+                 "_bw_downlink.npy", "_model_update_times.npy",
+                 "_update.txt", "_loss.npy", "_mioucats.npy", "_mious.npy",
+                 "_mioumems.npy"]
+        want = [early + n for n in names]
+        want += [results("pretrained") + n for n in names]
+        for second in (0, EXP_CUTOFF):
+            want.append(get_save_dir(cfg, "early%d_f2_%d"
+                                     % (EXP_CUTOFF, second)) + "_final.npz")
+        want.append(get_save_dir(cfg, "early%d_f2_0" % EXP_CUTOFF)
+                    + "_mask.dat.gz")
+        want.append(get_save_dir(cfg, "pretrained_0") + "_final.npz")
+        bundle = get_save_dir(cfg, "early%d_f2" % EXP_CUTOFF)
+        want += [bundle + "_resume_state.npz", bundle + "_resume_meta.json"]
+        missing = [p for p in want if not os.path.exists(p)]
+        check(not missing, "missing artifacts: %s" % missing)
+        with open(early + "_update.txt") as f:
+            down, up, updates, interval, samples = (
+                int(x) for x in f.read().split("\n"))
+        log("  early _update.txt: downlink %d bits, uplink %d kbits, %d "
+            "update(s), %d s, %d samples" % (down, up, updates, interval,
+                                             samples))
+        check(updates == 1, "%d updates, expected 1 (second 0 skips on an "
+              "empty memory, second %d trains)" % (updates, EXP_CUTOFF))
+        check(down > 0 and up > 0 and samples > 0 and interval == EXP_CUTOFF,
+              "update.txt: %s" % [down, up, updates, interval, samples])
+        means = {}
+        for mode in ("early", "pretrained"):
+            base = results(runs[mode]["label"])
+            for n in ("_mious.npy", "_mioumems.npy", "_loss.npy"):
+                a = np.load(base + n)
+                check(a.shape == (n_frames,), "%s%s: %s" % (mode, n,
+                                                              a.shape))
+                live = a[~np.isnan(a)]
+                check(live.size > 0 and np.isfinite(live).all(),
+                      "%s%s: not finite where defined" % (mode, n))
+            means[mode] = plot_miou_mean(
+                cfg, -1, 2 if mode == "early" else -1, runs[mode]["label"])
+
+        # the card's client against the port's CPU client on the same
+        # deployed artifacts, the first two seconds
+        cpu_out = os.path.join(tmp, "cpu_client") + "/"
+        shutil.copytree(out, cpu_out)
+        cpu_cfg = RunConfig(input_video=clip, gt_video=gt,
+                            student_checkpoint=ckpt, output_dir=cpu_out,
+                            height=SH, send_period=2, device="cpu")
+        torch.set_num_threads(os.cpu_count() or 1)
+        infer_output(cpu_cfg, 0, 2, runs["early"]["label"], gt, 90, [0])
+        cpu_res = get_save_dir(cpu_cfg, runs["early"]["label"] + "_results")
+        card_loss = np.load(early + "_loss.npy")[:2 * EXP_FPS]
+        cpu_loss = np.load(cpu_res + "_loss.npy")
+        loss_err = float(np.max(np.abs(card_loss - cpu_loss)
+                                / np.abs(cpu_loss)))
+        miou_err = float(np.nanmax(np.abs(
+            np.load(early + "_mious.npy")[:2 * EXP_FPS]
+            - np.load(cpu_res + "_mious.npy"))))
+        log("  card client vs CPU client, seconds 0-1: loss max rel err "
+            "%.3g (tolerance 1e-4), per-frame mIoU max abs err %.3g "
+            "(tolerance 1e-3)" % (loss_err, miou_err))
+        check(loss_err <= 1e-4 and miou_err <= 1e-3,
+              "card client differs from the CPU client")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rows = {}
+    for mode, r in runs.items():
+        t, c = r["totals"], r["counts"]
+        server = t.get("server/loop", 0.0)
+        client = t.get("client/loop", 0.0)
+        event = sum(t.get(k, 0.0) for k in (
+            "server/train_round", "server/delta_encode", "server/deploy",
+            "server/resume_save"))
+        rows[mode] = {
+            "wall_s": r["wall"],
+            "server_loop_s": server, "client_loop_s": client,
+            "train_round_s": t.get("server/train_round"),
+            "ms_per_iteration": (1000 * t["server/train_round"] / ROUND_ITERS
+                                 if "server/train_round" in t else None),
+            "event_s": event if c.get("server/train_round") else None,
+            "client_frames_per_s": n_frames / client if client else None,
+            "server_decode_share": (t.get("server/decode", 0.0) / server
+                                    if server else None),
+            "client_decode_share": (t.get("client/decode", 0.0) / client
+                                    if client else None),
+            "miou_mean": means[mode]["miou_mean"],
+            "uplink_kbps": means[mode]["uplink_kbps"],
+            "downlink_kbps": means[mode]["downlink_kbps"]}
+    return rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1671,6 +1913,12 @@ def main() -> int:
         "K3 and banded K4 blocks)" % (B, H, W))
     bf16_launches, bf16_rows, bf16_rates, handover = phase_bf16_client(
         dev, host)
+
+    log("phase 6: the emulated experiment (python -m ams_tpu_torch.cli.run "
+        "--mode early, then --mode pretrained; %d s of %dx%d frames at %d "
+        "fps, --height %d, %d iterations)"
+        % (8, EXP_HW[0], EXP_HW[1], EXP_FPS, SH, ROUND_ITERS))
+    experiment = phase_experiment(dev)
 
     main_case = cases[0]
     kernels = [{
@@ -1773,6 +2021,20 @@ def main() -> int:
             % (c["case"], c["shape"], c["loss_ms"], c["loss_grad_ms"],
                c["loss_device_ms"], c["loss_grad_device_ms"],
                c["loss_bound_ms"], c["loss_grad_bound_ms"], c["plan"]))
+    for mode, r in experiment.items():
+        log("experiment %s: %.2f s wall; server loop %.2f s (decode %.1f%%), "
+            "client loop %.2f s (decode %.1f%%), client %.1f frames/s in "
+            "the loop; round %s s (%s ms per iteration), event %s s; mIoU "
+            "mean %.4f, uplink %.3f kbps, downlink %.3f kbps"
+            % (mode, r["wall_s"], r["server_loop_s"],
+               100 * (r["server_decode_share"] or 0), r["client_loop_s"],
+               100 * (r["client_decode_share"] or 0),
+               r["client_frames_per_s"], r["train_round_s"],
+               r["ms_per_iteration"], r["event_s"], r["miou_mean"],
+               r["uplink_kbps"], r["downlink_kbps"]))
+    log("experiment trained against pretrained mIoU: %.4f vs %.4f"
+        % (experiment["early"]["miou_mean"],
+           experiment["pretrained"]["miou_mean"]))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
