@@ -13,7 +13,9 @@ OpenCV, so the port carries its own, held to cv2's output by the tests:
   coefficients from float32 source coordinates, an int horizontal sum and
   the SIMD path's vertical rounding, and, at exactly 2x down in both axes,
   cv2's switch to ``INTER_AREA`` (the 2x2 mean, rounded half up);
-- ``resize_nearest`` is cv2's ``INTER_NEAREST``.
+- ``resize_nearest`` is cv2's ``INTER_NEAREST``;
+- ``add_weighted_u8`` is cv2's uint8 ``addWeighted``: the vector path's
+  float32 fused multiply-adds, then ``saturate_cast`` (round half to even).
 
 Sizes are ``(height, width)`` throughout, unlike cv2's ``(width, height)``.
 """
@@ -35,8 +37,30 @@ _CHANNELS = {0: 1, 2: 3, 6: 4}
 
 
 def bgr_to_rgb(img: np.ndarray) -> np.ndarray:
-    """Swap the first and third channels (either direction)."""
+    """Swap the first and third channels (either direction), as
+    ``cv2.cvtColor`` does for three channels."""
     return np.ascontiguousarray(img[..., ::-1])
+
+
+rgb_to_bgr = bgr_to_rgb
+
+
+def add_weighted_u8(a: np.ndarray, alpha: float, b: np.ndarray,
+                    beta: float, gamma: float) -> np.ndarray:
+    """``cv2.addWeighted(a, alpha, b, beta, gamma)`` of two uint8 images of
+    one shape: ``fma(a, alpha, fma(b, beta, gamma))`` in float32 (each
+    product of a uint8 and a float32 is exact in float64, so one rounding
+    to float32 per step gives the fused result), then cv2's
+    ``saturate_cast<uchar>``: round half to even, clamp to [0, 255]."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype != np.uint8 or b.dtype != np.uint8 or a.shape != b.shape:
+        raise ValueError("add_weighted_u8 takes two uint8 images of one "
+                         "shape, got %s %s and %s %s"
+                         % (a.dtype, a.shape, b.dtype, b.shape))
+    f32 = np.float32
+    t = (b * np.float64(f32(beta)) + np.float64(f32(gamma))).astype(f32)
+    x = (a * np.float64(f32(alpha)) + t).astype(f32)
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
 
 
 # ------------------------------------------------------------------ encode

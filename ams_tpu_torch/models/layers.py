@@ -8,9 +8,12 @@ PyTorch's OIHW at call time.
 
 TF ``"SAME"`` padding is asymmetric for stride 2 (the extra row and column
 go bottom and right), which ``F.conv2d(padding="same")`` does not offer at
-stride 2, so the padding is explicit: ``lo = total // 2``, ``hi = total - lo``
-(in bfloat16 a symmetric padding goes to the convolution itself, saving a
-copy of the padded tensor; float32 keeps the explicit pad, and so its sums).
+stride 2, so the padding is explicit: ``lo = total // 2``, ``hi = total - lo``.
+``padding`` may also name the pairs ``((top, bottom), (left, right))``
+itself, as ``lax.conv_general_dilated`` takes them (slim's fixed padding of
+the teacher's stride-2 convolutions).  In bfloat16 a symmetric padding goes
+to the convolution itself, saving a copy of the padded tensor; float32
+keeps the explicit pad, and so its sums.
 
 ``compute_dtype`` (None keeps the input's type) casts activation and weight
 before a convolution, as the JAX package does.  In bfloat16 the activation
@@ -37,11 +40,18 @@ def _same_pad(size: int, k: int, stride: int, rate: int):
     return total // 2, total - total // 2
 
 
-def _pad_same(x, kh, kw, stride, rate):
-    """-> (x, padding): in bf16 a symmetric TF-'SAME' padding is returned
-    for the convolution to apply; any other is applied here."""
-    top, bottom = _same_pad(x.shape[2], kh, stride, rate)
-    left, right = _same_pad(x.shape[3], kw, stride, rate)
+def _pad(x, kh, kw, stride, rate, padding):
+    """-> (x, padding): in bf16 a symmetric padding is returned for the
+    convolution to apply; any other is applied here.  ``padding`` is
+    ``"SAME"`` (TF's) or ``((top, bottom), (left, right))``."""
+    if isinstance(padding, str):
+        if padding != "SAME":
+            raise ValueError("padding must be 'SAME' or ((top, bottom), "
+                             "(left, right)), got %r" % (padding,))
+        top, bottom = _same_pad(x.shape[2], kh, stride, rate)
+        left, right = _same_pad(x.shape[3], kw, stride, rate)
+    else:
+        (top, bottom), (left, right) = padding
     if x.dtype == torch.bfloat16 and top == bottom and left == right:
         return x, (top, left)
     if top or bottom or left or right:
@@ -70,19 +80,21 @@ def _cast(x, w, compute_dtype):
     return x.to(cd), w.to(cd)
 
 
-def conv2d(x, w, stride=1, rate=1, *, compute_dtype=None):
-    """2-D convolution, NCHW x HWIO -> NCHW, TF 'SAME' semantics; ``rate``
-    is the atrous rate (dilation)."""
+def conv2d(x, w, stride=1, rate=1, padding="SAME", *, compute_dtype=None):
+    """2-D convolution, NCHW x HWIO -> NCHW, TF 'SAME' padding unless
+    ``padding`` gives the pairs; ``rate`` is the atrous rate (dilation)."""
     x, w = _cast(x, w, compute_dtype)
-    x, pad = _pad_same(x, w.shape[0], w.shape[1], stride, rate)
+    x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, padding=pad,
                     dilation=rate)
 
 
-def depthwise_conv2d(x, w, stride=1, rate=1, *, compute_dtype=None):
-    """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1)."""
+def depthwise_conv2d(x, w, stride=1, rate=1, padding="SAME", *,
+                     compute_dtype=None):
+    """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1); ``padding`` as
+    in ``conv2d``."""
     x, w = _cast(x, w, compute_dtype)
-    x, pad = _pad_same(x, w.shape[0], w.shape[1], stride, rate)
+    x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
     return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
                     dilation=rate, groups=w.shape[2])
 

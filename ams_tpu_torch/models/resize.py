@@ -8,7 +8,8 @@ rounding identical to the reference.
 
 The public functions take channels-last ``(B, H, W, C)`` tensors like the
 JAX package; ``resize_nchw`` is the same map on the port's internal
-channels-first layout.
+channels-first layout.  ``resize_nearest_ac`` (TF's nearest-neighbour
+resize) takes ``(..., H, W)``, so NCHW and bare ``(H, W)`` maps alike.
 """
 
 from __future__ import annotations
@@ -129,3 +130,32 @@ def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     np.add.at(m, (rows, lo), 1.0 - w)
     np.add.at(m, (rows, hi), w)
     return m
+
+
+def _nearest_index(in_size: int, out_size: int, align_corners: bool
+                   ) -> np.ndarray:
+    """TF's nearest source index per output position, clamped to in-1.
+    Under align_corners the source coordinate i * (in-1)/(out-1) rounds
+    half AWAY from zero (C's ``roundf``), ``floor(src + 0.5)`` for these
+    non-negative values: ``np.rint``'s half-to-even would pick another
+    pixel wherever src lands on .5 (3 -> 5: src 0.5 maps to 1).  Otherwise
+    it is ``floor(i * in / out)``."""
+    i = np.arange(out_size, dtype=np.float64)
+    if align_corners:
+        idx = np.floor(i * _ac_scale(in_size, out_size) + 0.5)
+    else:
+        idx = np.floor(i * in_size / out_size)
+    return np.minimum(idx.astype(np.int64), in_size - 1)
+
+
+def resize_nearest_ac(x: torch.Tensor, out_hw, align_corners: bool = True
+                      ) -> torch.Tensor:
+    """tf.image.resize_nearest_neighbor of the last two axes of ``x``
+    (``(..., H, W)``), align_corners configurable (default True)."""
+    h, w = x.shape[-2], x.shape[-1]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (oh, ow) == (h, w):
+        return x
+    yi = torch.from_numpy(_nearest_index(h, oh, align_corners)).to(x.device)
+    xi = torch.from_numpy(_nearest_index(w, ow, align_corners)).to(x.device)
+    return x.index_select(x.dim() - 2, yi).index_select(x.dim() - 1, xi)

@@ -32,7 +32,6 @@ keyword and ignores it.
 from __future__ import annotations
 
 import functools
-import os
 import threading
 
 import numpy as np
@@ -72,20 +71,6 @@ from ams_tpu_torch.utils.metrics import (
     confusion_matrix_per_frame,
 )
 from ams_tpu_torch.utils.platform import resolve_device
-
-
-def _load_checkpoint(path: str) -> dict:
-    """.npy dict or .npz snapshot, with or without its extension, in the
-    JAX package's ``load_any`` order: the path itself, then ``.npy``, then
-    ``.npz`` (both read through the restore filter, suffixes stripped)."""
-    for cand in (path, path + ".npy", path + ".npz"):
-        if cand.endswith((".npz", ".npy")) and os.path.exists(cand):
-            return ckpt.load_params(cand)
-    if os.path.exists(path + ".index") or os.path.isdir(path):
-        raise NotImplementedError(
-            "TF1 and Orbax checkpoints are a later slice of the port; "
-            "convert %r to .npz or .npy" % path)
-    raise FileNotFoundError(path)
 
 
 class SemanticNetwork:
@@ -157,7 +142,7 @@ class SemanticNetwork:
             self.params = init_student_params(
                 seed, num_classes=self.TOTAL_CLASSES, device=self.device)
         else:
-            loaded = _load_checkpoint(str(meta_dir))
+            loaded = ckpt.load_any(str(meta_dir))
             if is_folded(loaded):
                 # BN-folded deployment artifact: its key set intentionally
                 # differs from the trainable inventory
@@ -299,7 +284,7 @@ class SemanticNetwork:
     def restore(self, chk):
         """Overlay a checkpoint (.npz/.npy path, or a name -> array dict)
         onto the current weights."""
-        loaded = _load_checkpoint(chk) if isinstance(chk, str) else chk
+        loaded = ckpt.load_any(chk) if isinstance(chk, str) else chk
         self.params = self._to_device(
             ckpt.merge_restore(self.get_vars(), loaded))
 

@@ -1,12 +1,15 @@
 """Checkpoint IO for flat TF-named parameter dicts (numpy on the host).
 
-Counterpart of ``save_params``, ``load_params`` and ``merge_restore`` in
-``ams_tpu/utils/checkpoint.py``: the reference's ``.npy`` dict snapshots,
-plus the ``.npz`` snapshots that ``save_to_frozen_graph`` writes.  The TF1
-checkpoint reader and Orbax come in a later slice of the port.
+Counterpart of ``save_params``, ``load_params``, ``load_any`` and
+``merge_restore`` in ``ams_tpu/utils/checkpoint.py``: the reference's
+``.npy`` dict snapshots, plus the ``.npz`` snapshots that
+``save_to_frozen_graph`` writes.  The TF1 checkpoint reader and Orbax come
+in a later slice of the port (``load_any`` names them and raises).
 """
 
 from __future__ import annotations
+
+import os
 
 from typing import Callable, Mapping, Optional
 
@@ -53,6 +56,23 @@ def load_params(path: str,
             continue
         out[strip_suffix(k)] = np.asarray(v)
     return out
+
+
+def load_any(path: str) -> dict:
+    """.npy dict or .npz snapshot, with or without its extension, in the
+    JAX package's ``load_any`` order: the path itself, then ``.npy``, then
+    ``.npz`` (each read through the restore filter, suffixes stripped).
+    A TF checkpoint prefix or an Orbax directory raises
+    ``NotImplementedError``; nothing at the path, ``FileNotFoundError``."""
+    path = str(path)
+    for cand in (path, path + ".npy", path + ".npz"):
+        if cand.endswith((".npz", ".npy")) and os.path.exists(cand):
+            return load_params(cand)
+    if os.path.exists(path + ".index") or os.path.isdir(path):
+        raise NotImplementedError(
+            "TF1 and Orbax checkpoints are a later slice of the port; "
+            "convert %r to .npz or .npy" % path)
+    raise FileNotFoundError(path)
 
 
 def merge_restore(params: dict, restored: Mapping[str, np.ndarray]) -> dict:

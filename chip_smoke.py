@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the real student's full width
-(MobileNetV2-DeepLabV3, 19 logits) from seeded random weights: the
-deployed edge client's serving path (512x1024 frames, batch 8) and the
+Drives the port's paths at the full width of both models, from seeded
+random weights: the real student (MobileNetV2-DeepLabV3, 19 logits) in the
+deployed edge client's serving path (512x1024 frames, batch 8), the
 server's distillation events (256x512 frames, minibatch 10, 200
-iterations of coord_desc_auto), and checks each kernel of the paths on
-the card:
+iterations of coord_desc_auto) and the emulated experiment, and the
+Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
+513x1025 at batch 16); and checks each kernel of the paths on the card:
 
 0. device line (name, power limit, torch and CUDA versions); a watchdog
    turns a hang into a traceback and a non-zero exit;
@@ -44,7 +45,7 @@ the card:
    kernel, with no cast, gather or copy between;
 6. the emulated experiment, with every launch counter set to 0 just
    before each run: a bands clip written as a frame directory (8 s of
-   512x1024 frames at 10 fps, exp 90), then `python -m
+   512x1024 frames at 10 fps, exp 90; phase 7 reads it too), then `python -m
    ams_tpu_torch.cli.run` with run.py's defaults and --mode early
    (cutoff 6 s: one training event of 200 iterations) and --mode
    pretrained, on the card; every artifact checked, one update, the uplink
@@ -54,7 +55,17 @@ the card:
    artifacts, and the PNG bytes of two probe images against OpenCV's (the
    card's zlib); with the spans of both runs, decode's share of each loop,
    the client's frames/s and both runs' mIoU;
-7. one JSON line of kernel numbers, the wall-clock, and as the last line
+7. the Xception-65 teacher and the batched labeler on the same clip:
+   seeded weights with BN statistics from the clip's frames; K1 against
+   its plain version on the teacher's own bf16 grid at the labeler's two
+   shapes (257x513 at batch 32, 513x1025 at batch 16); `python -m
+   ams_tpu_torch.cli.extract_labels` at --height 256 and at full frame
+   size, each with every launch counter set to 0 just before it (K1 once
+   per chunk, nothing else; every gt_ PNG equal to the labeler's ids;
+   annot_ and vis_ written), frames/s end to end and of the labeler
+   alone, with the device's busy share; the f32 labeler on the card (no
+   K1) against the CPU's; the bf16 labels' agreement with the f32 labels;
+8. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -188,15 +199,17 @@ def synthetic_frames(n, h, w, seed):
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def calibrate_bn(params, frames):
+def calibrate_bn(params, frames, forward=None):
     """Set every moving statistic to the batch moments of ``frames`` (one
-    forward with batch-statistics BN), so seeded random weights give
-    activations of a trained network's scale.  Synthetic init leaves the
-    statistics at (0, 1), under which the logits of 17 random blocks
-    vanish and every pixel ties."""
+    float32 ``forward``, the student's by default, with batch-statistics
+    BN), so seeded random weights give activations of a trained network's
+    scale.  Synthetic init leaves the statistics at (0, 1), under which the
+    logits of 17 random blocks vanish and every pixel ties."""
     import torch
     from ams_tpu_torch.models import layers
     from ams_tpu_torch.models.mobilenetv2_deeplab import student_logits
+
+    forward = forward or student_logits
 
     infer = layers.batch_norm_infer
 
@@ -208,7 +221,7 @@ def calibrate_bn(params, frames):
     layers.batch_norm_infer = batch_stats_bn
     try:
         with torch.no_grad():
-            student_logits(params, frames)
+            forward(params, frames)
     finally:
         layers.batch_norm_infer = infer
 
@@ -322,19 +335,103 @@ def resize_argmax_plan_line(plan, b):
                                         else str(k) for k, n in counted)))
 
 
+def k1_case(label, grid, h, w, ci=None):
+    """K1 against its plain version on one (B, C, gh, gw) grid, as the
+    caller's forward left it: two runs for the same bits, ids equal to the
+    plain version's off near ties, and the time per call by CUDA events
+    (``ms``) and on the device by torch.profiler (``device_ms``) beside
+    the plain version, the library call and the bound.  Returns the
+    kernel's ids and the case's row; a failed check raises."""
+    import torch
+    import torch.nn.functional as F
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+
+    b, c, gh, gw = grid.shape
+    cl = (not grid.is_contiguous()
+          and grid.is_contiguous(memory_format=torch.channels_last))
+    plan = fra.resize_argmax_plan(gh, gw, h, w)
+    log("  resize_argmax %s plan: %s"
+        % (label, resize_argmax_plan_line(plan, b)))
+    ci_t = None if ci is None else torch.tensor(ci, device=grid.device)
+    sel = grid.float()
+    if ci is not None:
+        sel = sel.index_select(1, ci_t)
+    n_sel = sel.shape[1]
+
+    def kernel():
+        return fra.fused_resize_argmax(grid, (h, w), ci)
+
+    def plain():
+        return fra.resize_argmax_plain(grid, (h, w), ci)
+
+    def library():
+        g = grid.float()
+        if ci is not None:
+            g = g.index_select(1, ci_t)
+        return F.interpolate(g, size=(h, w), mode="bilinear",
+                             align_corners=True).argmax(1)
+
+    n0 = fra.fused_resize_argmax.launches
+    got, got2 = kernel(), kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    check(fra.fused_resize_argmax.launches == n0 + 2,
+          "resize_argmax: two calls launched %d kernels in case %s"
+          % (fra.fused_resize_argmax.launches - n0, label))
+    check(got.shape == (b, h, w) and got.dtype == torch.int32,
+          "resize_argmax %s: ids %s %s" % (label, tuple(got.shape),
+                                           got.dtype))
+    ties = near_ties(sel, (h, w))
+    diff = got != want
+    mism, off = int(diff.sum()), int((diff & ~ties).sum())
+    n_ties = int(ties.sum())
+    max_err = int((got.long() - want.long()).abs().max())
+    same_bits = bool(torch.equal(got, got2))
+    del sel, ties, diff, got2, want
+    times = {}
+    for name, fn, n in (("kernel", kernel, 100), ("plain", plain, 10),
+                        ("library", library, 10)):
+        times[name] = (cuda_ms(fn, n), device_ms(fn, n))
+    bound, bound_by = resize_argmax_bound_ms(
+        b, n_sel, gh, gw, h, w, grid.element_size())
+    row = {"case": label, "shape": [b, c, gh, gw, h, w],
+           "dtype": str(grid.dtype).replace("torch.", ""),
+           "channels_last": cl, "classes": n_sel,
+           "plan": {"blocks": plan.blocks(b), "threads": plan.threads,
+                    "tiles": plan.n_tiles, "band_runs": len(plan.bands)},
+           "mismatches": mism, "mismatches_off_ties": off,
+           "near_tie_pixels": n_ties, "max_abs_err": max_err,
+           "same_bits": same_bits,
+           "kernel_ms": times["kernel"][0],
+           "device_ms": times["kernel"][1],
+           "plain_ms": times["plain"][0],
+           "plain_device_ms": times["plain"][1],
+           "library_ms": times["library"][0],
+           "library_device_ms": times["library"][1],
+           "bound_ms": bound, "bound_by": bound_by}
+    log("  resize_argmax %s %s %s%s: mismatches %d (off ties %d, "
+        "near-tie pixels %d); same bits on rerun %s"
+        % (label, row["shape"], row["dtype"],
+           " channels-last" if cl else "", mism, off, n_ties, same_bits))
+    log("    ms per call by events / on the device: kernel %.4f / %.4f, "
+        "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
+        % (times["kernel"] + times["plain"] + times["library"]
+           + (bound, bound_by)))
+    check(off == 0, "resize_argmax disagrees with its plain version off "
+          "ties in case %s: %d pixels" % (label, off))
+    check(same_bits, "resize_argmax: two runs differ in case %s" % label)
+    return got, row
+
+
 def phase_kernel_checks(dev):
     """Phase 2, K1: the resize+argmax kernel against its plain version at
     the client's shapes (f32 NCHW as the f32 forward leaves it; bf16
     channels-last with the exp-25 class table, as the bf16 folded forward
     hands it over) and at the edges of its plan (96 classes, past the 32
-    held in registers; one class; an output below the grid; W=1); each
-    case run twice for the same bits, and timed per call by CUDA events
-    (``ms``) and on the device by torch.profiler (``device_ms``) beside
-    the plain version, the library call and the bound."""
+    held in registers; one class; an output below the grid; W=1), each
+    by ``k1_case``."""
     import torch
-    import torch.nn.functional as F
     from ams_tpu_torch import configs
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
 
     f32, bf16 = torch.float32, torch.bfloat16
     exp_ci = tuple(int(k) for k in configs.class_indices(SUBSET_EXP))
@@ -359,77 +456,8 @@ def phase_kernel_checks(dev):
             .to(dtype)
         if cl:
             grid = grid.contiguous(memory_format=torch.channels_last)
-        plan = fra.resize_argmax_plan(gh, gw, h, w)
-        log("  resize_argmax %s plan: %s"
-            % (label, resize_argmax_plan_line(plan, b)))
-        ci_t = None if ci is None else torch.tensor(ci, device=dev)
-        sel = grid.float()
-        if ci is not None:
-            sel = sel.index_select(1, ci_t)
-        n_sel = sel.shape[1]
-
-        def kernel():
-            return fra.fused_resize_argmax(grid, (h, w), ci)
-
-        def plain():
-            return fra.resize_argmax_plain(grid, (h, w), ci)
-
-        def library():
-            g = grid.float()
-            if ci is not None:
-                g = g.index_select(1, ci_t)
-            return F.interpolate(g, size=(h, w), mode="bilinear",
-                                 align_corners=True).argmax(1)
-
-        n0 = fra.fused_resize_argmax.launches
-        got, got2 = kernel(), kernel()
-        want = plain()
-        torch.cuda.synchronize()
-        check(fra.fused_resize_argmax.launches == n0 + 2,
-              "resize_argmax: two calls launched %d kernels in case %s"
-              % (fra.fused_resize_argmax.launches - n0, label))
-        check(got.shape == (b, h, w) and got.dtype == torch.int32,
-              "resize_argmax %s: ids %s %s" % (label, tuple(got.shape),
-                                               got.dtype))
-        ties = near_ties(sel, (h, w))
-        diff = got != want
-        mism, off = int(diff.sum()), int((diff & ~ties).sum())
-        max_err = int((got.long() - want.long()).abs().max())
-        same_bits = bool(torch.equal(got, got2))
-        times = {}
-        for name, fn, n in (("kernel", kernel, 100), ("plain", plain, 10),
-                            ("library", library, 10)):
-            times[name] = (cuda_ms(fn, n), device_ms(fn, n))
-        bound, bound_by = resize_argmax_bound_ms(
-            b, n_sel, gh, gw, h, w, grid.element_size())
-        row = {"case": label, "shape": [b, c, gh, gw, h, w],
-               "dtype": str(dtype).replace("torch.", ""),
-               "channels_last": cl, "classes": n_sel,
-               "plan": {"blocks": plan.blocks(b), "threads": plan.threads,
-                        "tiles": plan.n_tiles, "band_runs": len(plan.bands)},
-               "mismatches": mism, "mismatches_off_ties": off,
-               "near_tie_pixels": int(ties.sum()), "max_abs_err": max_err,
-               "same_bits": same_bits,
-               "kernel_ms": times["kernel"][0],
-               "device_ms": times["kernel"][1],
-               "plain_ms": times["plain"][0],
-               "plain_device_ms": times["plain"][1],
-               "library_ms": times["library"][0],
-               "library_device_ms": times["library"][1],
-               "bound_ms": bound, "bound_by": bound_by}
-        log("  resize_argmax %s %s %s%s: mismatches %d (off ties %d, "
-            "near-tie pixels %d); same bits on rerun %s"
-            % (label, row["shape"], row["dtype"],
-               " channels-last" if cl else "", mism, off,
-               row["near_tie_pixels"], same_bits))
-        log("    ms per call by events / on the device: kernel %.4f / %.4f, "
-            "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
-            % (times["kernel"] + times["plain"] + times["library"]
-               + (bound, bound_by)))
-        check(off == 0, "resize_argmax disagrees with its plain version off "
-              "ties in case %s: %d pixels" % (label, off))
-        check(same_bits, "resize_argmax: two runs differ in case %s" % label)
-        out.append(row)
+        out.append(k1_case(label, grid, h, w, ci)[1])
+        out[-1]["channels_last"] = cl
     return out
 
 
@@ -1682,9 +1710,25 @@ def png_probe_images(seed=SEED):
     return {"frame": frame, "label": label}
 
 
-def phase_experiment(dev):
+def write_bands_clip(root):
+    """The bands clip of phases 6 and 7 as a frame directory under
+    ``root`` (8 s of EXP_HW BGR frames at EXP_FPS, exp 90, with its
+    labels): -> (clip directory, label directory with a slash)."""
+    from ams_tpu_torch.data.video import write_synthetic_clip
+
+    t0 = time.perf_counter()
+    clip = os.path.join(root, EXP_CLIP)
+    gt = os.path.join(root, "gt") + "/"
+    write_synthetic_clip(clip, seconds=8, fps=EXP_FPS, size_hw=EXP_HW,
+                         seed=SEED, gt_dir=gt, style="bands")
+    log("  wrote %d %dx%d BGR frames and labels in %.2f s"
+        % (8 * EXP_FPS, EXP_HW[0], EXP_HW[1], time.perf_counter() - t0))
+    return clip, gt
+
+
+def phase_experiment(dev, clip, gt):
     """Phase 6: the emulated experiment through the CLI, early then
-    pretrained, on a frame directory written by the port."""
+    pretrained, on the bands clip (``write_bands_clip``)."""
     import hashlib
     import zlib
 
@@ -1693,11 +1737,7 @@ def phase_experiment(dev):
     from ams_tpu_torch.cli import run as cli_run
     from ams_tpu_torch.convert import params_to_numpy
     from ams_tpu_torch.data.image import png_encode, png_read
-    from ams_tpu_torch.data.video import (
-        frame_path,
-        frame_to_rgb,
-        write_synthetic_clip,
-    )
+    from ams_tpu_torch.data.video import frame_path, frame_to_rgb
     from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
     from ams_tpu_torch.runtime.analytics import plot_miou_mean
     from ams_tpu_torch.runtime.client import infer_output
@@ -1716,14 +1756,7 @@ def phase_experiment(dev):
 
     tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_exp_")
     try:
-        t0 = time.perf_counter()
-        clip = os.path.join(tmp, EXP_CLIP)
-        gt = os.path.join(tmp, "gt") + "/"
-        write_synthetic_clip(clip, seconds=8, fps=EXP_FPS, size_hw=EXP_HW,
-                             seed=SEED, gt_dir=gt, style="bands")
         n_frames = 8 * EXP_FPS
-        log("  wrote %d %dx%d BGR frames and labels in %.2f s"
-            % (n_frames, EXP_HW[0], EXP_HW[1], time.perf_counter() - t0))
         # seeded random weights, BN statistics from the clip's frames
         params = init_student_params(SEED, device=dev)
         calib = np.stack([frame_to_rgb(png_read(frame_path(clip, i)),
@@ -1862,6 +1895,249 @@ def phase_experiment(dev):
     return rows
 
 
+def device_busy(fn):
+    """(wall s, device busy s, K1 device s) of one ``fn()`` call under
+    torch.profiler (host and card): the device's busy time is the sum of
+    its kernels' and copies' durations, K1's the resize_argmax kernel's.
+    The profiler's own cost lengthens the wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+        if busy > 0:
+            k1 = sum(e.time_range.elapsed_us() for e in events
+                     if "resize_argmax" in e.name) / 1e6
+            return wall, busy, k1
+        log("  torch.profiler recorded no device time; profiling again")
+    check(False, "torch.profiler recorded no device time in 3 profiles")
+
+
+def phase_teacher(dev, clip):
+    """Phase 7: the Xception-65 teacher and the batched labeler on the
+    bands clip.  Seeded weights (``init_teacher_params(SEED)``) with BN
+    statistics calibrated on 8 of the clip's frames; K1 against its plain
+    version on the teacher's own bf16 grid at both labeler shapes (257x513
+    at batch 32, 513x1025 at batch 16); ``python -m
+    ams_tpu_torch.cli.extract_labels`` at --height 256 and at full frame
+    size, each with the launch counters set to 0 just before it (K1 once
+    per chunk, every gt_ PNG equal to the labeler's ids); the labeler
+    alone and its device busy share; the f32 labeler on the card (no K1)
+    against the same labeler on the CPU; the bf16 labels against the
+    f32 labels."""
+    import glob
+
+    import numpy as np
+    import torch
+    from ams_tpu_torch.cli import extract_labels as cli_extract
+    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.data.image import bgr_to_rgb, png_read
+    from ams_tpu_torch.data.video import frame_path, frame_to_rgb, \
+        load_gt_label
+    from ams_tpu_torch.models import xception_deeplab as xd
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+    from ams_tpu_torch.runtime.labeler import auto_batch, \
+        make_teacher_labeler
+    from ams_tpu_torch.utils.trace import GLOBAL_TIMER
+
+    bf16 = torch.bfloat16
+    n_frames = 8 * EXP_FPS
+    th = SH                                   # extract_labels --height 256
+    t0 = time.perf_counter()
+    bgr = [png_read(frame_path(clip, i)) for i in range(n_frames)]
+    small = np.stack([frame_to_rgb(f, (th, 2 * th)) for f in bgr])
+    full = np.stack([bgr_to_rgb(f) for f in bgr])
+    del bgr
+    log("  read the clip's %d frames in %.2f s" % (n_frames,
+                                                   time.perf_counter() - t0))
+
+    def pad(frames):
+        return np.pad(frames, ((0, 0), (1, 0), (1, 0), (0, 0)),
+                      mode="symmetric")
+
+    params = xd.init_teacher_params(SEED, device=dev)
+    calibrate_bn(params, torch.from_numpy(pad(small[::10])).to(dev),
+                 xd.teacher_logits_nchw)
+    n_params = sum(v.numel() for v in params.values())
+    log("  teacher: Xception-65 OS16, %d tensors, %d parameters; BN "
+        "statistics from 8 frames" % (len(params), n_params))
+    tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_teacher_")
+    try:
+        ckpt = os.path.join(tmp, "teacher.npz")
+        np.savez(ckpt, **params_to_numpy(params))
+
+        # K1 on the teacher's own bf16 grid, as the forward leaves it
+        cases, forward = [], {}
+        for frames in (small[:32], full[:16]):
+            staged = torch.from_numpy(pad(frames)).to(dev)
+            b, h, w = staged.shape[:3]
+            label = "teacher %dx%d, B=%d" % (h, w, b)
+            with torch.inference_mode():
+                grid = xd.teacher_logits_nchw(params, staged,
+                                              compute_dtype=bf16, out_hw=None)
+                check(grid.dtype == bf16 and grid.shape[1] == 19,
+                      "teacher grid %s %s" % (tuple(grid.shape), grid.dtype))
+                log("  %s: grid %s %s, channels-last %s"
+                    % (label, tuple(grid.shape), grid.dtype,
+                       grid.is_contiguous(memory_format=torch.channels_last)))
+                _, row = k1_case(label, grid, h, w)
+                del grid
+
+                def fast():
+                    return xd.teacher_predict_fast(params, staged)
+
+                fwd_ms = cuda_ms(fast, 5)
+                log("  bf16 teacher forward + K1 on the device, %s: %.2f ms "
+                    "per batch = %.1f frames/s" % (label, fwd_ms,
+                                                   b * 1e3 / fwd_ms))
+                forward[label] = {"device_ms": fwd_ms,
+                                  "device_frames_per_s": b * 1e3 / fwd_ms}
+                if not cases:
+                    log("  where the device time of one %s forward goes "
+                        "(torch.profiler):" % label)
+                    try:
+                        lines = device_breakdown(fast, top=10)
+                    except (RuntimeError, AssertionError) as e:
+                        lines = ["profiler unavailable: %s" % e]
+                    for line in lines:
+                        log("    " + line)
+            cases.append(row)
+
+        # the CLI, at --height 256 and at full frame size
+        runs, labelers = {}, {}
+        for name, extra, frames in (("height %d" % th, ["--height", str(th)],
+                                     small),
+                                    ("full size", [], full)):
+            dump = os.path.join(tmp, "labels_%d" % len(runs)) + "/"
+            batch = auto_batch(frames.shape[1])
+            chunks = -(-n_frames // batch)
+            reset_counters()
+            GLOBAL_TIMER.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cli_extract.main(["--input_video", clip, "--dump_path", dump,
+                              "--teacher_checkpoint", ckpt] + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            spans = dict(GLOBAL_TIMER.totals)
+            # end to end: uint8 frames in, PNGs out, after the weights load
+            loop = wall - spans.get("labeler/load", 0.0)
+            log("  extract_labels, %s: %.2f s wall, %.2f s of it loading the "
+                "weights; %d frames in %.2f s = %.2f frames/s end to end; "
+                "auto batch %d, %d chunks; launches %s"
+                % (name, wall, wall - loop, n_frames, loop, n_frames / loop,
+                   batch, chunks, launches))
+            log("  spans:\n" + "\n".join(
+                "    " + line for line in GLOBAL_TIMER.summary().split("\n")))
+            check(launches["resize_argmax"] == chunks
+                  and sum(launches.values()) == chunks,
+                  "%s: launches %s, want K1 once per chunk (%d) and no other"
+                  % (name, launches, chunks))
+            for kind in ("gt", "annot", "vis"):
+                n = len(glob.glob(os.path.join(dump, kind + "_*.png")))
+                check(n == n_frames, "%s: %d %s_ files, want %d"
+                      % (name, n, kind, n_frames))
+            if batch not in labelers:
+                labelers[batch] = make_teacher_labeler(ckpt, batch=batch,
+                                                       device=dev)
+            label_fn = labelers[batch]
+            ids = label_fn(frames)
+            bad = [i for i in range(n_frames) if not np.array_equal(
+                load_gt_label(dump, i), ids[i])]
+            log("  %s: every gt_ PNG read back equals the labeler's ids: %s"
+                " (classes present %s)" % (name, not bad,
+                                           np.unique(ids).tolist()))
+            check(not bad, "%s: gt_ PNGs %s differ from the labeler's ids"
+                  % (name, bad[:5]))
+
+            # the labeler alone: uint8 frames in, ids out
+            part = frames[:2 * batch]
+            label_fn(part)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            label_fn(part)
+            alone = time.perf_counter() - t0
+            p_wall, busy, k1_s = device_busy(lambda: label_fn(part))
+            log("  labeler alone, %s: %d frames in %.3f s = %.1f frames/s; "
+                "under torch.profiler %.3f s, the device busy %.3f s (%.1f%%),"
+                " K1 %.5f s (%.2f%% of the device time)"
+                % (name, len(part), alone, len(part) / alone, p_wall, busy,
+                   100 * busy / p_wall, k1_s, 100 * k1_s / busy))
+            runs[name] = {
+                "frames": n_frames, "batch": batch, "chunks": chunks,
+                "k1_launches": launches["resize_argmax"], "wall_s": wall,
+                "load_s": wall - loop, "loop_s": loop,
+                "end_to_end_frames_per_s": n_frames / loop,
+                "read_s": spans.get("labeler/read"),
+                "predict_s": spans.get("labeler/predict"),
+                "write_s": spans.get("labeler/write"),
+                "labeler_frames_per_s": len(part) / alone,
+                "profiled_wall_s": p_wall, "device_busy_s": busy,
+                "device_busy_share": busy / p_wall, "k1_device_s": k1_s}
+            shutil.rmtree(dump, ignore_errors=True)
+
+        # the f32 labeler: no K1 on the card, and the card against the CPU
+        two = small[:2]
+        reset_counters()
+        f32_card = make_teacher_labeler(ckpt, compute_dtype="float32",
+                                        batch=2, device=dev)
+        ids_card = f32_card(two)
+        check(fra.fused_resize_argmax.launches == 0,
+              "the f32 labeler launched K1 %d times"
+              % fra.fused_resize_argmax.launches)
+        torch.set_num_threads(os.cpu_count() or 1)
+        cpu = torch.device("cpu")
+        f32_cpu = make_teacher_labeler(ckpt, compute_dtype="float32",
+                                       batch=2, device=cpu)
+        ids_cpu = f32_cpu(two)
+        with torch.inference_mode():
+            padded = torch.from_numpy(pad(two))
+            ref = xd.teacher_logits_nchw(
+                {k: v.cpu() for k, v in params.items()}, padded)
+            got = xd.teacher_logits_nchw(params, padded.to(dev)).cpu()
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        top2 = torch.topk(ref, 2, dim=1).values
+        decisive = ((top2[:, 0] - top2[:, 1]) > 2 * err + TIE_MARGIN) \
+            .numpy()[:, 1:, 1:]
+        differ = int(((ids_card != ids_cpu) & decisive).sum())
+        f32_tol = 1e-3 * max(1.0, scale)
+        log("  f32 labeler, card vs CPU on 2 frames of %dx%d: logits max "
+            "abs err %.3g (|logits| up to %.3g, tolerance %.3g); ids agree "
+            "on %.6f, %d differ off near ties; K1 launches 0"
+            % (th, 2 * th, err, scale, f32_tol,
+               float((ids_card == ids_cpu).mean()), differ))
+        check(err <= f32_tol and differ == 0,
+              "the f32 labeler on the card differs from the CPU's")
+
+        # bf16 labels against f32 labels on the card (random weights: not
+        # a gate)
+        part = small[:32]
+        ids_bf16 = labelers[32](part)
+        ids_f32 = make_teacher_labeler(ckpt, compute_dtype="float32",
+                                       batch=32, device=dev)(part)
+        agree = float((ids_bf16 == ids_f32).mean())
+        log("  bf16 labels agree with the f32 labels on %.6f of pixels "
+            "(32 frames of %dx%d)" % (agree, th, 2 * th))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return cases, runs, {"forward": forward,
+                         "f32_card_vs_cpu_logits_max_abs_err": err,
+                         "f32_card_vs_cpu_logits_scale": scale,
+                         "f32_card_vs_cpu_ids_differ_off_ties": differ,
+                         "bf16_vs_f32_agree": agree}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1914,11 +2190,21 @@ def main() -> int:
     bf16_launches, bf16_rows, bf16_rates, handover = phase_bf16_client(
         dev, host)
 
-    log("phase 6: the emulated experiment (python -m ams_tpu_torch.cli.run "
-        "--mode early, then --mode pretrained; %d s of %dx%d frames at %d "
-        "fps, --height %d, %d iterations)"
-        % (8, EXP_HW[0], EXP_HW[1], EXP_FPS, SH, ROUND_ITERS))
-    experiment = phase_experiment(dev)
+    clip_root = tempfile.mkdtemp(prefix="ams_chip_smoke_clip_")
+    try:
+        log("phase 6: the emulated experiment (python -m "
+            "ams_tpu_torch.cli.run --mode early, then --mode pretrained; %d "
+            "s of %dx%d frames at %d fps, --height %d, %d iterations)"
+            % (8, EXP_HW[0], EXP_HW[1], EXP_FPS, SH, ROUND_ITERS))
+        clip, gt = write_bands_clip(clip_root)
+        experiment = phase_experiment(dev, clip, gt)
+
+        log("phase 7: the Xception-65 teacher and the labeler (python -m "
+            "ams_tpu_torch.cli.extract_labels on the same clip, --height %d "
+            "then full size)" % SH)
+        teacher_cases, labeler_runs, teacher_checks = phase_teacher(dev, clip)
+    finally:
+        shutil.rmtree(clip_root, ignore_errors=True)
 
     main_case = cases[0]
     kernels = [{
@@ -1940,6 +2226,10 @@ def main() -> int:
         "mismatches_off_ties": sum(c["mismatches_off_ties"] for c in cases),
         "server_path_launches": server_launches["resize_argmax"],
         "bf16_path_launches": bf16_launches["resize_argmax"],
+        "teacher_path_launches": {name: r["k1_launches"]
+                                  for name, r in labeler_runs.items()},
+        "teacher_max_abs_err": max(c["max_abs_err"] for c in teacher_cases),
+        "teacher_cases": teacher_cases,
         "handover": handover,
         "shape": main_case["shape"], "cases": cases}]
     ce_main = ce_cases[0]
@@ -2035,6 +2325,24 @@ def main() -> int:
     log("experiment trained against pretrained mIoU: %.4f vs %.4f"
         % (experiment["early"]["miou_mean"],
            experiment["pretrained"]["miou_mean"]))
+    for c in teacher_cases:
+        log("resize_argmax %s %s %s: %.4f ms per call (%.4f on the device; "
+            "bound %.4f, %s); plain %.4f / %.4f, library %.4f / %.4f; "
+            "mismatches %d, off ties %d"
+            % (c["case"], c["shape"], c["dtype"], c["kernel_ms"],
+               c["device_ms"], c["bound_ms"], c["bound_by"], c["plain_ms"],
+               c["plain_device_ms"], c["library_ms"], c["library_device_ms"],
+               c["mismatches"], c["mismatches_off_ties"]))
+    for name, r in labeler_runs.items():
+        log("labeler %s: batch %d, %d chunks, K1 %d launches; %.2f frames/s "
+            "end to end (read %.2f s, predict %.2f s, write %.2f s); the "
+            "labeler alone %.1f frames/s, device busy %.1f%% under the "
+            "profiler" % (name, r["batch"], r["chunks"], r["k1_launches"],
+                          r["end_to_end_frames_per_s"], r["read_s"] or 0,
+                          r["predict_s"] or 0, r["write_s"] or 0,
+                          r["labeler_frames_per_s"],
+                          100 * r["device_busy_share"]))
+    log("teacher checks: %s" % json.dumps(teacher_checks))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))
