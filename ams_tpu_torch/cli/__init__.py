@@ -1,2 +1,2 @@
 """Command-line entry points of the port (``python -m
-ams_tpu_torch.cli.run``)."""
+ams_tpu_torch.cli.run``, ``.extract_labels``, ``.serve``, ``.edge``)."""

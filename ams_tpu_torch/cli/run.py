@@ -60,7 +60,8 @@ def build_parser():
     p.add_argument("--early_cutoff_time", type=int, default=60)
     p.add_argument("--compute_dtype", choices=["float32", "bfloat16"],
                    default="float32",
-                   help="bfloat16 is not ported yet (ROADMAP A7)")
+                   help="bfloat16 = the mixed-precision round (bf16 "
+                        "convolutions, f32 weights and optimizer)")
     p.add_argument("--conv_precision", choices=["auto", "default", "highest"],
                    default="auto",
                    help="default is not ported yet (ROADMAP A7)")

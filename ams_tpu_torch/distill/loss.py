@@ -80,8 +80,9 @@ def masked_mean(x, mask):
 
 
 def distill_loss(params, frames, labels, class_indices, num_classes, *,
-                 train=True, teacher_logits=None, stats_out=None,
-                 fused=False, class_mask=None, resize_via="gather"):
+                 train=True, teacher_logits=None, compute_dtype=torch.float32,
+                 stats_out=None, fused=False, class_mask=None,
+                 resize_via="gather"):
     """Scalar distillation loss + aux dict.
 
     Args:
@@ -91,6 +92,9 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
         class_indices: the selected class ids.
         num_classes: total classes (19 or 21).
         teacher_logits: optional (B, H, W, num_classes) for soft-teacher CE.
+        compute_dtype: the convolutions' type (float32 or bfloat16); the
+            grid logits go to float32 before the class gather and the
+            resize, so the loss is taken in float32 either way.
         stats_out: optional dict to capture BN batch moments for the
             moving-average update.
         fused: with hard labels, the loss runs through the fused
@@ -117,7 +121,8 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
         from ams_tpu_torch.ops.fused_resize_ce import fused_resize_ce
 
         grid = grid_logits_nchw(params, frames, train=train,
-                                stats_out=stats_out)
+                                stats_out=stats_out,
+                                compute_dtype=compute_dtype)
         grid = grid.float().index_select(1, ci).contiguous()
         reduced_labels, weights, _ = reduce_labels(labels, class_indices,
                                                    num_classes)
@@ -129,7 +134,8 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
 
     if resize_via == "matmul":
         grid = grid_logits_nchw(params, frames, train=train,
-                                stats_out=stats_out)
+                                stats_out=stats_out,
+                                compute_dtype=compute_dtype)
         # the class gather commutes with the per-channel resize; doing it
         # at grid level shrinks the resize and its backward
         grid_red = grid.float().index_select(1, ci)
@@ -137,7 +143,8 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
                                             (h, w)).permute(0, 2, 3, 1)
     elif resize_via == "gather":
         logits = student_logits(params, frames, train=train,
-                                stats_out=stats_out)
+                                stats_out=stats_out,
+                                compute_dtype=compute_dtype)
         reduced_logits = logits.index_select(3, ci)
     else:
         raise ValueError("resize_via must be 'gather' or 'matmul', not %r"

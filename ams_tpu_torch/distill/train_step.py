@@ -21,6 +21,13 @@ then the top ``coord_frac`` of |delta| over all trainables (concatenated in
 sorted-key order, ``torch.quantile`` with linear interpolation, a strict
 ``>``) is kept and the rest reverted.
 
+``compute_dtype="bfloat16"`` is the mixed-precision round of the JAX
+package: each convolution casts its input and weight to bf16, while the
+parameters, the Adam slots, the BN moving statistics, the BN moments and
+the loss stay float32.  The peeled selection iteration runs at
+``select_dtype`` (float32 by default, TF32 off), the others at the compute
+type, and a bf16 round resizes the loss's logits by the matmul form.
+
 The losses stay on the device and are stacked at the end.
 """
 
@@ -53,9 +60,9 @@ from ams_tpu_torch.utils.metrics import (
 @dataclasses.dataclass(frozen=True)
 class DistillSpec:
     """Static configuration of a distillation round; the fields of
-    ``ams_tpu``'s ``DistillSpec``.  The port computes in float32 on one
-    device: the fields it does not run yet raise ``NotImplementedError``
-    when the round is built."""
+    ``ams_tpu``'s ``DistillSpec``.  The port runs one device: the fields it
+    does not run yet raise ``NotImplementedError`` when the round is
+    built."""
 
     iters: int = 200                 # run.py 'iter' flag default
     batch_size: int = 10             # run.py 'batch_size'
@@ -63,7 +70,7 @@ class DistillSpec:
     class_indices: Tuple[int, ...] = tuple(range(19))
     strategy: str = "full_model"
     coord_frac: float = 0.1
-    compute_dtype: str = "float32"   # "bfloat16": ROADMAP A7
+    compute_dtype: str = "float32"   # or "bfloat16" (mixed precision)
     batch_axis: Optional[str] = None     # sharded rounds: ROADMAP A6
     width_axis: Optional[str] = None
     conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A7
@@ -71,18 +78,30 @@ class DistillSpec:
     # to f32 rounding without the full-resolution logits.  Off by default,
     # as in the JAX package; PERF.md has the card's times for both paths.
     fused_loss: bool = False
+    # the peeled selection iteration's type: "float32", or "compute"
     select_dtype: str = "float32"
-    loss_resize: str = "auto"        # "auto" = gather for f32 rounds
+    # "auto" = the gather resize for f32 rounds, the matmul form for bf16
+    loss_resize: str = "auto"
     bn_train: bool = True
 
-    def resize_via(self) -> str:
-        return "gather" if self.loss_resize == "auto" else self.loss_resize
+    @property
+    def cdtype(self) -> torch.dtype:
+        return layers.as_dtype(self.compute_dtype)
+
+    def resize_via(self, cdtype) -> str:
+        if self.loss_resize != "auto":
+            return self.loss_resize
+        return "gather" if layers.as_dtype(cdtype) == torch.float32 \
+            else "matmul"
+
+    @property
+    def select_cdtype(self) -> torch.dtype:
+        if self.select_dtype == "compute":
+            return self.cdtype
+        return layers.as_dtype(self.select_dtype)
 
     def check_supported(self) -> None:
-        if str(self.compute_dtype) != "float32":
-            raise NotImplementedError(
-                "compute_dtype %r: the port's round computes in float32; "
-                "the bf16 path is ROADMAP A7" % (self.compute_dtype,))
+        layers.as_dtype(self.compute_dtype)  # ValueError if unknown
         if self.select_dtype not in ("float32", "compute"):
             raise ValueError("select_dtype must be 'float32' or 'compute'")
         if self.batch_axis or self.width_axis:
@@ -145,7 +164,8 @@ def make_distill_round(spec: DistillSpec):
     auto = spec.strategy == "coord_desc_auto"
     ci = tuple(int(c) for c in spec.class_indices)
 
-    def loss_and_grads(params_t, bn_state, frames, labels, class_mask):
+    def loss_and_grads(params_t, bn_state, frames, labels, class_mask,
+                       cdtype):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params_t.items()}
         merged = dict(leaves)
@@ -154,10 +174,10 @@ def make_distill_round(spec: DistillSpec):
         with torch.enable_grad():
             loss, _aux = distill_loss(
                 merged, frames, labels, ci, spec.num_classes,
-                train=spec.bn_train,
+                train=spec.bn_train, compute_dtype=cdtype,
                 stats_out=stats if spec.bn_train else None,
                 fused=spec.fused_loss, class_mask=class_mask,
-                resize_via=spec.resize_via())
+                resize_via=spec.resize_via(cdtype))
             keys = list(leaves)
             grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
         return loss.detach(), dict(zip(keys, grads)), stats
@@ -190,10 +210,10 @@ def make_distill_round(spec: DistillSpec):
                                     generator=gen, device=dev)
             return frames_buf[idx].float(), labels_buf[idx]
 
-        def step(params_t, bn_state, opt_state, it):
+        def step(params_t, bn_state, opt_state, it, cdtype):
             frames, labels = draw(it)
             loss, grads, stats = loss_and_grads(params_t, bn_state, frames,
-                                                labels, class_mask)
+                                                labels, class_mask, cdtype)
             stepped, opt_state = adam_apply(params_t, grads, opt_state, lr)
             if spec.bn_train:
                 # every step, for every BN, whatever the mask; the recorded
@@ -209,8 +229,8 @@ def make_distill_round(spec: DistillSpec):
         first_iter = 0
         losses = []
         if auto and reselect and spec.iters > 0:
-            loss0, stepped, bn_state, opt_state = step(params_t, bn_state,
-                                                       opt_state, 0)
+            loss0, stepped, bn_state, opt_state = step(
+                params_t, bn_state, opt_state, 0, spec.select_cdtype)
             delta = _flat_abs_delta(stepped, before)
             thr = torch.quantile(delta, 1.0 - spec.coord_frac,
                                  interpolation="linear")
@@ -223,8 +243,8 @@ def make_distill_round(spec: DistillSpec):
             losses.append(loss0)
 
         for it in range(first_iter, spec.iters):
-            loss, stepped, bn_state, opt_state = step(params_t, bn_state,
-                                                      opt_state, it)
+            loss, stepped, bn_state, opt_state = step(
+                params_t, bn_state, opt_state, it, spec.cdtype)
             params_t = _tree_where(mask, stepped, params_t)
             losses.append(loss)
 
@@ -246,13 +266,6 @@ def _scoring(reduced_logits, labels, class_indices, num_classes):
     return red_labels, weights, pixel_loss
 
 
-def _check_predict_dtype(train_bn: bool, compute_dtype) -> None:
-    if train_bn and layers.as_dtype(compute_dtype) != torch.float32:
-        raise NotImplementedError(
-            "training-mode BN predicts in float32; the bf16 server path is "
-            "ROADMAP A7")
-
-
 @functools.lru_cache(maxsize=None)
 def make_predict_fn(num_classes, class_indices, *, train_bn: bool,
                     compute_dtype=torch.float32):
@@ -260,9 +273,8 @@ def make_predict_fn(num_classes, class_indices, *, train_bn: bool,
     matrix over the selected classes with invalid-label weights zeroed,
     mean CE over valid pixels).  ``train_bn=True`` normalizes with the
     batch statistics, as the reference's server-side (non-frozen) graph
-    does, in float32 only (bf16 training is ROADMAP A7); the deployed
-    client uses the moving statistics, in either compute type."""
-    _check_predict_dtype(train_bn, compute_dtype)
+    does; the deployed client uses the moving statistics.  Either runs in
+    float32 or bfloat16."""
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 
@@ -284,7 +296,6 @@ def make_predict_seq_fn(num_classes, class_indices, *, train_bn: bool,
                         compute_dtype=torch.float32):
     """Per-frame metrics over a frame batch: predict_seq(params, frames,
     labels) -> (preds (B,H,W), confusion matrices (B,C,C), losses (B,))."""
-    _check_predict_dtype(train_bn, compute_dtype)
     class_indices = tuple(int(c) for c in class_indices)
     n_sel = len(class_indices)
 

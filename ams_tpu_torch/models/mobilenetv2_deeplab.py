@@ -18,13 +18,13 @@ statistics, as the reference's training graph does, and records in
 update consumes.
 
 ``compute_dtype`` (default float32, TF32 off) follows the JAX package's
-dtype flow for inference: convolutions cast activation and weight to it,
-inference BN stays in the activation's type, the image pooling's mean is
-taken in f32, and the logits go to f32 before the resize.  Only
-``student_grid_logits`` preprocesses in the compute type, as JAX's does.
-Training (``train=True``) runs in float32 only: the bf16 server round is
-ROADMAP A7.  The JAX package defaults these functions' ``compute_dtype``
-to bfloat16 where the port keeps float32 (ROADMAP §C).
+dtype flow: convolutions cast activation and weight to it, inference BN
+stays in the activation's type, training BN takes its moments in f32 and
+casts its output back, the image pooling's mean is taken in f32, and the
+logits go to f32 before the resize.  Only ``student_grid_logits``
+preprocesses in the compute type, and only for inference, as JAX's does:
+training preprocesses in f32.  The JAX package defaults these functions'
+``compute_dtype`` to bfloat16 where the port keeps float32 (ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -142,13 +142,6 @@ def _two_over_255(device: torch.device, dtype=torch.float32) -> torch.Tensor:
         return torch.tensor(2.0 / 255.0, dtype=dtype, device=device)
 
 
-def _check_train_dtype(train: bool, compute_dtype) -> None:
-    if train and layers.as_dtype(compute_dtype) not in (None, torch.float32):
-        raise NotImplementedError(
-            "train=True computes in float32; the bf16 server round is "
-            "ROADMAP A7")
-
-
 def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
     if train:
         y, mean, var = layers.batch_norm_train(
@@ -174,7 +167,6 @@ def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
              stats_out=None, compute_dtype=torch.float32) -> torch.Tensor:
     """MobileNetV2 trunk on preprocessed (B, 3, H, W) input; returns
     (B, 320, ceil(H/16), ceil(W/16))."""
-    _check_train_dtype(train, compute_dtype)
     cd = compute_dtype
     bn = dict(train=train, stats_out=stats_out)
     x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2,
@@ -207,7 +199,6 @@ def deeplab_head(params: Params, feat: torch.Tensor,
     """ASPP (1x1 + image pooling) -> projection -> per-class logits, all
     (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits,
     in the compute type)."""
-    _check_train_dtype(train, compute_dtype)
     cd = compute_dtype
     bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out)
     b, _, fh, fw = feat.shape

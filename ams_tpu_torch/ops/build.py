@@ -13,6 +13,9 @@ temporary name and ``os.replace``-d into place: no lock file, and a build
 cut off midway leaves nothing that a later run would load.
 
 Nothing here runs at import: the first call that needs a kernel builds it.
+Threads of one process (the live server's sessions, a client beside them)
+may need a kernel at the same moment: ``build`` and ``load`` hold one lock,
+so a library is compiled and loaded once per process.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence
@@ -33,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -60,6 +65,11 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
     {name: {"path", "seconds", "cached", "ptxas"}}, ptxas being the
     compiler's register, spill and shared-memory lines.  Raises with the
     compiler's output if any build fails."""
+    with _LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     info, procs = {}, {}
     for name in names:
@@ -94,9 +104,10 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use in this process."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib

@@ -13,7 +13,9 @@ it.
 
 ``fused_resize_argmax`` is the wrapper: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, and nothing falls back from one to
-the other.  ``resize_argmax_plan`` cuts a shape into the kernel's blocks.
+the other.  Its launch count (``fused_resize_argmax.launches``) is taken
+under a lock: the live server's labeler and a client may launch from two
+threads at once.  ``resize_argmax_plan`` cuts a shape into the kernel's blocks.
 ``resize_argmax_plain`` is the plain version, the CPU path and the
 kernel's oracle on the card.
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +41,7 @@ SOURCE = "ams_tpu_torch/csrc/resize_argmax.cu"
 REPLACES = "ams_tpu/ops/fused_resize_argmax.py:40 (_kernel)"
 MAX_THREADS = 128
 MAX_BAND_ROWS = 32       # the kernel's kMaxRows
+_COUNT_LOCK = threading.Lock()
 
 
 def _class_ids(class_index):
@@ -207,7 +211,8 @@ def fused_resize_argmax(grid: torch.Tensor, out_hw,
         raise RuntimeError("resize_argmax kernel launch failed: CUDA error %d"
                            " (grid %s %s -> %dx%d)"
                            % (err, tuple(grid.shape), grid.dtype, h, w))
-    fused_resize_argmax.launches += 1
+    with _COUNT_LOCK:
+        fused_resize_argmax.launches += 1
     return out
 
 

@@ -48,7 +48,7 @@ class RunConfig:
     horizon_k2s: tuple = (16, 32, 64, 128, 256)
     horizon_points: int = 3
 
-    compute_dtype: str = "float32"     # "bfloat16": ROADMAP A7
+    compute_dtype: str = "float32"     # or "bfloat16" (mixed precision)
     conv_precision: str = "auto"       # auto|highest ("default": ROADMAP A7)
     fold_deploy: bool = True           # BN-fold the deployed client artifact
     resume: bool = False               # continue from the last saved event
@@ -72,10 +72,6 @@ class RunConfig:
             raise ValueError("ASR can only be used in simple mode")
         if self.enable_ATR and self.mode != "simple":
             raise ValueError("ATR can only be used in simple mode")
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                "compute_dtype %r: the port's server computes in float32; "
-                "the bf16 round is ROADMAP A7" % (self.compute_dtype,))
         if self.conv_precision not in ("auto", "highest"):
             raise NotImplementedError(
                 "conv_precision %r: the port's convolutions run in full f32 "

@@ -18,8 +18,9 @@ arguments and public methods:
   as the reference's server graph does.
 
 ``compute_dtype="bfloat16"`` runs a frozen client (folded or not) in bf16
-storage with f32 accumulation, as the JAX facade does; the server stays
-float32 (its bf16 round is ROADMAP A7).  As in JAX, the facade has no
+storage with f32 accumulation, and a server's round and predictions in
+mixed precision (bf16 convolutions; f32 weights, Adam slots, BN
+statistics and loss), as the JAX facade does.  As in JAX, the facade has no
 ``fused_blocks`` knob: the fused MBConv variants are reached through
 ``models.frozen.student_predict_fast_folded``.
 
@@ -95,10 +96,6 @@ class SemanticNetwork:
             raise ValueError("Training parameters must be specified for "
                              "non-frozen graph")
         cd = as_dtype(compute_dtype)
-        if cd != torch.float32 and not frozen:
-            raise NotImplementedError(
-                "compute_dtype %r: the port's server computes in float32; "
-                "the bf16 server round is ROADMAP A7" % (compute_dtype,))
         if over_ride_total_classes is not None:
             self.TOTAL_CLASSES = over_ride_total_classes
 

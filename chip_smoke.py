@@ -65,7 +65,21 @@ Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
    annot_ and vis_ written), frames/s end to end and of the labeler
    alone, with the device's busy share; the f32 labeler on the card (no
    K1) against the CPU's; the bf16 labels' agreement with the f32 labels;
-8. one JSON line of kernel numbers, the wall-clock, and as the last line
+8. the live runtime on the same clip: `python -m ams_tpu_torch.cli.serve
+   --port 0 --max_clients 2` (seeded teacher and student with BN
+   statistics from the clip, by --teacher_checkpoint and a
+   --checkpoint_dir name) and two concurrent `python -m
+   ams_tpu_torch.cli.edge` at --height 256 (float16 and int8d wires, send
+   and train periods of 2 and 4 s, 200 iterations, sessions in bf16 by
+   the hello's default), each applying 2 deltas with its artifacts
+   cross-summed, then SIGTERM and "served 4 rounds across 2 sessions";
+   then, with every launch counter set to 0 just before it, one session
+   in this process (a LiveServer with the bf16 teacher labeler, a
+   LiveClient on the card): K1 once per labeler chunk and once per frame
+   predicted and no other kernel, the client equal to the server's values
+   at float16 after every delta and to final_vars at the end, its ids
+   equal to a CPU client's off near ties, and the bf16 round's times;
+9. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2138,6 +2152,395 @@ def phase_teacher(dev, clip):
                          "bf16_vs_f32_agree": agree}
 
 
+LIVE_SECONDS_BUDGET = 600    # part A's subprocesses, as a whole
+
+
+def live_lines(text):
+    """The server's ``[live]`` lines: -> (labels, rounds), labels as
+    (t, frames, seconds) and rounds as (t, round, train s, encode s,
+    payload bytes, wire)."""
+    import re
+
+    labels = [(float(t), int(n), float(s)) for t, n, s in re.findall(
+        r"\[live\] t=(\d+) labeled (\d+) frames in ([\d.]+)s", text)]
+    rounds = [(float(t), int(r), float(tr), float(en), int(b), w)
+              for t, r, tr, en, b, w in re.findall(
+                  r"\[live\] t=(\d+) round (\d+): train ([\d.]+)s encode "
+                  r"([\d.]+)s payload (\d+)B \([\w_]+/(\w+)\)", text)]
+    return labels, rounds
+
+
+def live_checkpoints(dev, clip, root):
+    """Seeded student and teacher weights with BN statistics from 8 of the
+    clip's frames, saved under ``root``: -> (student directory, student
+    name, teacher path)."""
+    import numpy as np
+    import torch
+    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.data.image import png_read
+    from ams_tpu_torch.data.video import frame_path, frame_to_rgb
+    from ams_tpu_torch.models import xception_deeplab as xd
+    from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
+
+    rgb = np.stack([frame_to_rgb(png_read(frame_path(clip, i)), (SH, SW))
+                    for i in range(0, 8 * EXP_FPS, EXP_FPS)])
+    student = init_student_params(SEED, device=dev)
+    calibrate_bn(student, torch.from_numpy(rgb).to(dev))
+    sdir = os.path.join(root, "students")
+    os.makedirs(sdir)
+    np.savez(os.path.join(sdir, "student.npz"), **params_to_numpy(student))
+    teacher = xd.init_teacher_params(SEED, device=dev)
+    padded = np.pad(rgb, ((0, 0), (1, 0), (1, 0), (0, 0)), mode="symmetric")
+    calibrate_bn(teacher, torch.from_numpy(padded).to(dev),
+                 xd.teacher_logits_nchw)
+    tpath = os.path.join(root, "teacher.npz")
+    np.savez(tpath, **params_to_numpy(teacher))
+    del student, teacher
+    return sdir, "student.npz", tpath
+
+
+def phase_live_cli(dev, clip, gt, root, sdir, sname, tpath):
+    """Phase 8, part A: ``python -m ams_tpu_torch.cli.serve`` and two
+    concurrent ``python -m ams_tpu_torch.cli.edge`` processes on the bands
+    clip, then SIGTERM to the server."""
+    import signal
+
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    dev_args = (["--device", "cpu"] if dev.type == "cpu"
+                else ["--device", "cuda", "--gpu", str(dev.index or 0)])
+    t_start = time.perf_counter()
+    deadline = t_start + LIVE_SECONDS_BUDGET
+    srv_log = os.path.join(root, "serve.log")
+    procs = []
+    try:
+        with open(srv_log, "w") as out:
+            srv = subprocess.Popen(
+                [sys.executable, "-m", "ams_tpu_torch.cli.serve", "--port",
+                 "0", "--max_clients", "2", "--resume_dir",
+                 os.path.join(root, "resume"), "--checkpoint_dir", sdir,
+                 "--teacher_checkpoint", tpath] + dev_args,
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+        procs.append(srv)
+        port = None
+        while port is None and time.perf_counter() < deadline:
+            with open(srv_log) as f:
+                text = f.read()
+            if "ams live server on " in text:
+                port = int(text.split("ams live server on ")[1].split()[0]
+                           .rsplit(":", 1)[1])
+            elif srv.poll() is not None:
+                check(False, "serve exited rc %s:\n%s" % (srv.returncode,
+                                                          text[-3000:]))
+            else:
+                time.sleep(0.2)
+        check(port is not None, "serve never printed its address")
+        log("  serve listening on port %d after %.1f s"
+            % (port, time.perf_counter() - t_start))
+        edges = {}
+        for name, wire in (("a", "float16"), ("b", "int8d")):
+            out_dir = os.path.join(root, "edge_" + name)
+            log_path = out_dir + ".log"
+            with open(log_path, "w") as out:
+                p = subprocess.Popen(
+                    [sys.executable, "-m", "ams_tpu_torch.cli.edge",
+                     "--server", "127.0.0.1:%d" % port, "--input_video",
+                     clip, "--gt_dir", gt, "--output_dir", out_dir,
+                     "--height", str(SH), "--send_period", "2",
+                     "--train_period", "4", "--iter", str(ROUND_ITERS),
+                     "--batch_size", str(MINI_BATCH), "--coord_fraction",
+                     str(COORD_FRAC), "--wire_dtype", wire, "--client_id",
+                     name, "--student_checkpoint", sname] + dev_args,
+                    cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+            procs.append(p)
+            edges[name] = dict(proc=p, wire=wire, out=out_dir, log=log_path)
+        for name, e in edges.items():
+            try:
+                rc = e["proc"].wait(max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            with open(e["log"]) as f:
+                e["text"] = f.read()
+            check(rc == 0, "edge %s exited rc %s:\n%s"
+                  % (name, rc, e["text"][-3000:]))
+        edges_s = time.perf_counter() - t_start
+        srv.send_signal(signal.SIGTERM)
+        try:
+            rc = srv.wait(max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        with open(srv_log) as f:
+            srv_text = f.read()
+        check(rc == 0, "serve exited rc %s after SIGTERM:\n%s"
+              % (rc, srv_text[-3000:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check("served 4 rounds across 2 sessions" in srv_text,
+          "serve did not report 4 rounds across 2 sessions:\n%s"
+          % srv_text[-2000:])
+    labels, rounds = live_lines(srv_text)
+    check(len(labels) == 8 and len(rounds) == 4,
+          "serve printed %d label and %d round lines, want 8 and 4"
+          % (len(labels), len(rounds)))
+    n_frames = 8 * EXP_FPS
+    rows = {}
+    for name, e in edges.items():
+        text = e["text"]
+        check("2 deltas applied" in text, "edge %s did not apply 2 deltas:"
+              "\n%s" % (name, text[-2000:]))
+        base = os.path.join(e["out"], "90_live_results")
+        dn = np.load(base + "_bw_downlink.npy")
+        up = np.load(base + "_bw_uplink.npy")
+        fpc = np.load(base + "_fps_client.npy")
+        mt = np.load(base + "_model_update_times.npy")
+        scores = np.load(base + "_miou_live.npy")
+        with open(base + "_update.txt") as f:
+            down, upb, updates, seconds, samples = (
+                int(x) for x in f.read().split("\n"))
+        check(down == dn.sum() and upb == up.sum() and updates == len(dn)
+              == 2 and samples == fpc.sum() and len(mt) == 3
+              and seconds == 8,
+              "edge %s: _update.txt %s against the .npy artifacts (down %d,"
+              " up %d, %d deltas, %d samples, %d update times)"
+              % (name, [down, upb, updates, seconds, samples], dn.sum(),
+                 up.sum(), len(dn), fpc.sum(), len(mt)))
+        check(down > 0 and upb > 0, "edge %s: bits %d down, %d up"
+              % (name, down, upb))
+        check(scores.shape[0] > 0 and np.isfinite(scores[:, 1]).all(),
+              "edge %s: gt mIoU not finite" % name)
+        streamed = [ln for ln in text.splitlines()
+                    if ln.startswith("streamed ")]
+        check(streamed and streamed[-1].startswith("streamed %d frames"
+                                                   % n_frames),
+              "edge %s: %s" % (name, streamed))
+        fps = float(streamed[-1].split("(")[1].split(" fps")[0])
+        # the edge's own per-second rates: the seconds it spent streaming,
+        # without the end-of-stream wait for the last deltas
+        stream_s = float(np.sum(EXP_FPS / np.load(base + "_wall_fps.npy")))
+        rows[name] = {"wire": e["wire"], "frames_per_s": fps,
+                      "streaming_frames_per_s": n_frames / stream_s,
+                      "miou_mean": float(scores[:, 1].mean()),
+                      "downlink_bits": down, "uplink_bits": upb,
+                      "delta_bytes": [int(b) // 8 for b in dn]}
+        log("  edge %s (%s): %s; %.1f frames/s while streaming; gt mIoU "
+            "mean %.4f over %d scored frames; deltas %s B"
+            % (name, e["wire"], streamed[-1],
+               rows[name]["streaming_frames_per_s"], rows[name]["miou_mean"],
+               scores.shape[0], rows[name]["delta_bytes"]))
+    for t, n, s in labels:
+        log("  [live] t=%.0f labeled %d frames in %.2f s" % (t, n, s))
+    for t, r, tr, en, b, w in rounds:
+        log("  [live] t=%.0f round %d (%s): train %.2f s encode %.2f s "
+            "payload %d B" % (t, r, w, tr, en, b))
+    wall = time.perf_counter() - t_start
+    log("  part A: %.1f s wall (edges done after %.1f s)" % (wall, edges_s))
+    return {"edges": rows, "label_s": [s for _, _, s in labels],
+            "rounds": [{"t": t, "round": r, "train_s": tr, "encode_s": en,
+                        "payload_bytes": b, "wire": w}
+                       for t, r, tr, en, b, w in rounds],
+            "wall_s": wall}
+
+
+def phase_live_k1(dev, clip, sdir, sname, tpath):
+    """Phase 8, part B: one live session in this process, a ``LiveServer``
+    with the bf16 teacher labeler and a ``LiveClient`` on the card, with
+    every launch counter set to 0 just before it."""
+    import numpy as np
+    import torch
+    from ams_tpu_torch import configs
+    from ams_tpu_torch.data.image import png_read
+    from ams_tpu_torch.data.video import frame_path, frame_to_rgb
+    from ams_tpu_torch.models.mobilenetv2_deeplab import grid_logits_nchw
+    from ams_tpu_torch.models.resize import resize_nchw
+    from ams_tpu_torch.runtime import live as live_mod
+    from ams_tpu_torch.runtime.labeler import auto_batch, \
+        make_teacher_labeler
+    from ams_tpu_torch.runtime.network import SemanticNetwork
+
+    rgb = np.stack([frame_to_rgb(png_read(frame_path(clip, i)), (SH, SW))
+                    for i in range(0, 8 * EXP_FPS, 5)])
+    teacher = make_teacher_labeler(tpath, device=dev)
+    batch = auto_batch(SH)
+    stats = {"chunks": 0, "draws": 0}
+
+    def labeler(frames):
+        stats["chunks"] += -(-len(frames) // batch)
+        stats["draws"] += 1
+        return teacher(frames)
+
+    sent = []
+    encode = live_mod.encode_delta
+
+    def capture(params, masks, **kw):
+        sent.append(({k: v.copy() for k, v in params.items()},
+                     {k: v.copy() for k, v in masks.items()},
+                     {k: v.copy() for k, v in kw["stats"].items()}))
+        return encode(params, masks, **kw)
+
+    round_s = []
+    train = SemanticNetwork.train_with_deque
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(self, *a, **kw)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        return out
+
+    live_mod.encode_delta = capture
+    SemanticNetwork.train_with_deque = timed
+    reset_counters()
+    predicted = 0
+    try:
+        server = live_mod.LiveServer(labeler, device=dev,
+                                     checkpoint_dir=sdir)
+        server.serve_in_background()
+        client = live_mod.LiveClient(
+            server.address, exp_num=90, height=SH,
+            strategy="coord_desc_auto", iters=ROUND_ITERS,
+            batch_size=MINI_BATCH, train_period=2, coord_frac=COORD_FRAC,
+            checkpoint=sname, client_id="k1", device=dev)
+        initial = {k: v.copy() for k, v in client.network.get_vars().items()}
+        draws = ((0.0, rgb[0:2]), (1.0, rgb[2:4]), (2.0, rgb[4:6]))
+        rounds = 0
+        deadline = time.perf_counter() + 300.0
+        for t, frames in draws:
+            client.send_samples(frames, t)
+            rounds += t in (0.0, 2.0)      # train_period 2: t=0 and t=2
+            # the round runs alone on the card and the host (its time is
+            # the bf16 round's record); the edge infers after each draw
+            while client.deltas_applied < rounds:
+                check(time.perf_counter() < deadline,
+                      "no delta for the draw at t=%.0f within 300 s" % t)
+                got = client.poll_deltas(timeout=5.0)
+                check(not client.closed, "server closed the session: %s"
+                      % client.server_error)
+                if not got:
+                    continue
+                params, masks, annex = sent[client.deltas_applied - 1]
+                cli = client.network.get_vars()
+                for k, m in masks.items():
+                    want = params[k].astype(np.float16).astype(np.float32)
+                    check(np.array_equal(cli[k][m], want[m]),
+                          "delta %d: %s differs from the server's value at "
+                          "float16 on the selected coordinates"
+                          % (client.deltas_applied, k))
+                    check(np.array_equal(cli[k][~m], initial[k][~m]),
+                          "delta %d: %s moved off its initial value outside "
+                          "the mask" % (client.deltas_applied, k))
+                for k, v in annex.items():
+                    check(np.array_equal(
+                        cli[k], v.astype(np.float16).astype(np.float32)),
+                        "delta %d: BN statistic %s differs from the annex"
+                        % (client.deltas_applied, k))
+            for f in rgb[6:8]:
+                client.predict(f)
+                predicted += 1
+        ids = np.stack([client.predict(f) for f in rgb[8:12]])
+        predicted += 4
+        torch.cuda.synchronize()
+        client.close()
+        server.join(timeout=120.0)
+    finally:
+        live_mod.encode_delta = encode
+        SemanticNetwork.train_with_deque = train
+    launches = launch_counts()
+    log("  session: %d draws (%d teacher chunks of %d), %d rounds, %d frames "
+        "predicted on the card; launches %s"
+        % (stats["draws"], stats["chunks"], batch, len(sent), predicted,
+           launches))
+    check(len(sent) == 2 and client.deltas_applied == 2,
+          "%d deltas sent, %d applied, want 2" % (len(sent),
+                                                  client.deltas_applied))
+    check(launches["resize_argmax"] == stats["chunks"] + predicted,
+          "K1 launched %d times; the labeler's %d chunks and the %d frames "
+          "predicted make %d" % (launches["resize_argmax"], stats["chunks"],
+                                 predicted, stats["chunks"] + predicted))
+    others = {k: v for k, v in launches.items() if k != "resize_argmax"}
+    check(not any(others.values()), "other kernels launched: %s" % others)
+
+    srv = server.final_vars["k1"]
+    cli = client.network.get_vars()
+    checked = 0
+    for k, sv in srv.items():
+        if "moving_" in k:
+            check(np.array_equal(cli[k], sv.astype(np.float16)
+                                 .astype(np.float32)),
+                  "final BN statistic %s differs from final_vars" % k)
+            continue
+        changed = cli[k] != initial[k]
+        if changed.any():
+            check(np.allclose(cli[k][changed], sv[changed], rtol=2e-3,
+                              atol=2e-3),
+                  "final %s differs from final_vars beyond float16" % k)
+            checked += int(changed.sum())
+    check(checked > 0, "no coordinate changed")
+
+    # the card's client against a CPU client from the same params, as
+    # phase 7 holds the f32 labeler: the f32 logits of the two devices
+    # within 1e-3 of their scale, and equal ids wherever the CPU's top-2
+    # margin exceeds twice the largest logit difference
+    cpu = SemanticNetwork(cli, configs.class_weights(90), height=SH,
+                          frozen=True, device="cpu")
+    torch.set_num_threads(os.cpu_count() or 1)
+    cpu_ids = cpu.predict_input(rgb[8:12])
+    ci = list(configs.class_indices(90))
+    with torch.no_grad():
+        def logits(params, d):
+            grid = grid_logits_nchw(params, torch.from_numpy(rgb[8:12])
+                                    .to(d))
+            return resize_nchw(grid[:, ci].float(), (SH, SW)).cpu()
+        ref = logits(cpu.params, torch.device("cpu"))
+        err = float((logits(client.network.params, dev) - ref).abs().max())
+        top2 = torch.topk(ref, 2, dim=1).values
+        decisive = ((top2[:, 0] - top2[:, 1]) > 2 * err + TIE_MARGIN).numpy()
+    scale = float(ref.abs().max())
+    mism = ids != cpu_ids
+    off_ties = int((mism & decisive).sum())
+    log("  card client against a CPU client, 4 frames: logits max abs err "
+        "%.3g (|logits| up to %.3g, tolerance %.3g); %d ids differ, %d where "
+        "the top-2 margin exceeds twice that; final params within float16 "
+        "of final_vars on %d changed coordinates"
+        % (err, scale, 1e-3 * max(1.0, scale), int(mism.sum()), off_ties,
+           checked))
+    check(err <= 1e-3 * max(1.0, scale) and off_ties == 0,
+          "the card's client differs from the CPU client's")
+    iters = ROUND_ITERS
+    log("  bf16 rounds: %s s (%s ms per iteration)"
+        % (["%.3f" % s for s in round_s],
+           ["%.2f" % (1e3 * s / iters) for s in round_s]))
+    return {"k1_launches": launches["resize_argmax"],
+            "chunks": stats["chunks"], "frames_predicted": predicted,
+            "draws": stats["draws"], "round_s": round_s,
+            "ms_per_iteration": [1e3 * s / iters for s in round_s],
+            "mismatches": int(mism.sum()), "mismatches_off_ties": off_ties,
+            "cpu_logits_max_abs_err": err,
+            "checked_coordinates": checked}
+
+
+def phase_live(dev, clip, gt):
+    """Phase 8: the live runtime on the bands clip (see the module
+    docstring): -> (part A's record, part B's record)."""
+    root = tempfile.mkdtemp(prefix="ams_chip_smoke_live_")
+    try:
+        t0 = time.perf_counter()
+        sdir, sname, tpath = live_checkpoints(dev, clip, root)
+        log("  calibrated student and teacher saved in %.1f s"
+            % (time.perf_counter() - t0))
+        cli_rec = phase_live_cli(dev, clip, gt, root, sdir, sname, tpath)
+        k1_rec = phase_live_k1(dev, clip, sdir, sname, tpath)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return cli_rec, k1_rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2203,6 +2606,12 @@ def main() -> int:
             "ams_tpu_torch.cli.extract_labels on the same clip, --height %d "
             "then full size)" % SH)
         teacher_cases, labeler_runs, teacher_checks = phase_teacher(dev, clip)
+
+        log("phase 8: the live runtime (python -m ams_tpu_torch.cli.serve "
+            "and two concurrent python -m ams_tpu_torch.cli.edge on the same "
+            "clip, --height %d, %d iterations in bf16; then one session in "
+            "this process with K1 counted)" % (SH, ROUND_ITERS))
+        live_cli, live_k1 = phase_live(dev, clip, gt)
     finally:
         shutil.rmtree(clip_root, ignore_errors=True)
 
@@ -2228,6 +2637,7 @@ def main() -> int:
         "bf16_path_launches": bf16_launches["resize_argmax"],
         "teacher_path_launches": {name: r["k1_launches"]
                                   for name, r in labeler_runs.items()},
+        "live_path_launches": live_k1["k1_launches"],
         "teacher_max_abs_err": max(c["max_abs_err"] for c in teacher_cases),
         "teacher_cases": teacher_cases,
         "handover": handover,
@@ -2343,6 +2753,28 @@ def main() -> int:
                           r["labeler_frames_per_s"],
                           100 * r["device_busy_share"]))
     log("teacher checks: %s" % json.dumps(teacher_checks))
+    for name, r in live_cli["edges"].items():
+        log("live edge %s (%s): %.1f frames/s while streaming, %.1f end "
+            "to end with the wait for the last deltas; gt mIoU mean %.4f; "
+            "deltas %s B" % (name, r["wire"], r["streaming_frames_per_s"],
+                             r["frames_per_s"], r["miou_mean"],
+                             r["delta_bytes"]))
+    log("live server (CLI): label %s s per draw (the first loads the "
+        "teacher); rounds (train s include the wait for the device lock) %s"
+        % (live_cli["label_s"], json.dumps(live_cli["rounds"])))
+    log("live session in process: K1 %d launches = %d teacher chunks + %d "
+        "frames predicted; bf16 rounds %s s, %s ms per iteration"
+        % (live_k1["k1_launches"], live_k1["chunks"],
+           live_k1["frames_predicted"],
+           ["%.3f" % x for x in live_k1["round_s"]],
+           ["%.2f" % x for x in live_k1["ms_per_iteration"]]))
+    log("bf16 round against f32 rounds at %dx%d, minibatch %d, %d "
+        "iterations: bf16 (matmul resize) %s ms per iteration; "
+        "f32 fused loss (phase 4) %s; f32 gather loss (phase 6) %.2f"
+        % (SH, SW, MINI_BATCH, ROUND_ITERS,
+           ["%.2f" % x for x in live_k1["ms_per_iteration"]],
+           ["%.2f" % ev["ms_per_iteration"] for ev in events],
+           experiment["early"]["ms_per_iteration"] or float("nan")))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

@@ -176,11 +176,15 @@ def test_client_rejects_what_is_not_ported(case, tmp_path):
     params = case[0]
     kw = dict(class_weights_exp=configs.class_weights(EXP), height=64,
               device="cpu")
-    # a bf16 client is ported; the bf16 server round is not (ROADMAP A7)
+    # the bf16 client and server are ported; single-pass f32
+    # convolutions are not (ROADMAP A7)
     with pytest.raises(NotImplementedError):
         TorchNetwork(dict(params), frozen=False, scale=[1],
-                     mini_batch_size=4, lr=1e-3, compute_dtype="bfloat16",
-                     **kw)
+                     mini_batch_size=4, lr=1e-3, conv_precision="default",
+                     **kw).train_with_deque([np.zeros((64, 128, 3),
+                                                      np.uint8)],
+                                            [np.zeros((64, 128), np.uint8)],
+                                            1)
     assert TorchNetwork(dict(params), frozen=True, compute_dtype="bfloat16",
                         **kw).compute_dtype == "bfloat16"
     tf_prefix = os.path.join(str(tmp_path), "model.ckpt")
