@@ -5,10 +5,15 @@ The package mirrors ``ams_tpu``'s layout (``models``, ``ops``, ``stream``,
 under the same path.  It imports neither JAX nor ``ams_tpu``; the numpy-only
 modules it needs are copied in, and the tests hold the copies equal.
 
-Ported so far: the deployed edge client's serving path (delta apply,
-unfolded and BN-folded inference, per-frame scoring) with the
-resize+argmax kernel in ``csrc/resize_argmax.cu``.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Ported: the edge client (f32 and bf16, BN-folded, with the fused MBConv
+kernels), the server's distillation round (f32 and bf16, with the fused
+resize+CE kernel), the emulated experiment (``cli/run.py``), the teacher
+and its labeler (``cli/extract_labels.py``), the live runtime
+(``cli/serve.py`` and ``cli/edge.py``) and the multi-device paths
+(``parallel``: the multi-video round and server, the minibatch-parallel
+round over ``torch.distributed``, the sharded labeler).  The kernels are
+in ``csrc/``.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; ROADMAP.md lists what is not ported.
 """
 
 __version__ = "0.1.0"

@@ -51,12 +51,13 @@ def adam_state_from_numpy(step, m: Mapping[str, np.ndarray],
 
     dev = resolve_device(device)
     return AdamState(
-        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
-                          device=dev),
+        step=torch.from_numpy(np.array(step, np.int32)).to(dev),
         m=params_from_numpy(m, dev), v=params_from_numpy(v, dev))
 
 
 def adam_state_to_numpy(state):
-    """The port's ``AdamState`` -> (step int32, m dict, v dict) in numpy."""
-    return (np.int32(int(state.step)), params_to_numpy(state.m),
+    """The port's ``AdamState`` -> (step int32, m dict, v dict) in numpy;
+    the step keeps its shape ((V,) for stacked per-video states)."""
+    step = state.step.detach().cpu().numpy().astype(np.int32)
+    return (step[()] if step.ndim == 0 else step, params_to_numpy(state.m),
             params_to_numpy(state.v))

@@ -72,17 +72,22 @@ def softmax_xent_with_soft_labels(logits, soft_labels):
     return -torch.sum(soft_labels * torch.log_softmax(logits, dim=-1), dim=-1)
 
 
-def masked_mean(x, mask):
+def masked_mean(x, mask, reduce=None):
     """Mean over elements where mask is nonzero (boolean_mask +
-    reduce_mean); 0 for an empty mask."""
+    reduce_mean); 0 for an empty mask.  With ``reduce`` (a
+    ``parallel.collectives.SumReducer``) the numerator and the weight sum
+    are summed over the ranks first: the mean of the global batch."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=1.0)
+    num, den = torch.sum(x * m), torch.sum(m)
+    if reduce is not None:
+        num, den = reduce(torch.stack([num, den])).unbind()
+    return num / torch.clamp(den, min=1.0)
 
 
 def distill_loss(params, frames, labels, class_indices, num_classes, *,
                  train=True, teacher_logits=None, compute_dtype=torch.float32,
                  stats_out=None, fused=False, class_mask=None,
-                 resize_via="gather"):
+                 resize_via="gather", reduce=None):
     """Scalar distillation loss + aux dict.
 
     Args:
@@ -106,6 +111,9 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
             label validity.
         resize_via: "gather" = the TF-rounding-exact lerp resize; "matmul" =
             the R@x@C^T form.
+        reduce: optional ``parallel.collectives.SumReducer``: ``frames``
+            are this rank's equal share of a global minibatch, and the BN
+            moments and the loss are those of the global minibatch.
 
     Returns:
         (loss, aux).  On the standard paths aux = {'predictions',
@@ -122,12 +130,19 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
 
         grid = grid_logits_nchw(params, frames, train=train,
                                 stats_out=stats_out,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, reduce=reduce)
         grid = grid.float().index_select(1, ci).contiguous()
         reduced_labels, weights, _ = reduce_labels(labels, class_indices,
                                                    num_classes)
         loss = fused_resize_ce(grid, reduced_labels.to(torch.int32),
                                weights, (h, w))
+        if reduce is not None:
+            # the kernel's mean divides by this rank's weight total T_r;
+            # the global loss is sum_r mean_r * T_r / T, and its gradient
+            # through the kernel's node is then grad_sum_r / T
+            local = torch.clamp(torch.sum(weights), min=1.0)
+            total = torch.clamp(reduce(torch.sum(weights)), min=1.0)
+            loss = reduce(loss * (local / total))
         aux = {"weights": weights, "reduced_labels": reduced_labels,
                "grid_logits_reduced": grid.permute(0, 2, 3, 1)}
         return loss, aux
@@ -135,7 +150,7 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
     if resize_via == "matmul":
         grid = grid_logits_nchw(params, frames, train=train,
                                 stats_out=stats_out,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, reduce=reduce)
         # the class gather commutes with the per-channel resize; doing it
         # at grid level shrinks the resize and its backward
         grid_red = grid.float().index_select(1, ci)
@@ -144,7 +159,7 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
     elif resize_via == "gather":
         logits = student_logits(params, frames, train=train,
                                 stats_out=stats_out,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, reduce=reduce)
         reduced_logits = logits.index_select(3, ci)
     else:
         raise ValueError("resize_via must be 'gather' or 'matmul', not %r"
@@ -172,7 +187,7 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
     else:
         pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
                                                    filtered_onehot)
-    loss = masked_mean(pixel_loss, weights > 0)
+    loss = masked_mean(pixel_loss, weights > 0, reduce=reduce)
     preds = torch.argmax(reduced_logits, dim=-1).to(torch.int32)
     aux = {"predictions": preds, "weights": weights,
            "logits_reduced": reduced_logits, "reduced_labels": reduced_labels}

@@ -29,6 +29,14 @@ the loss stay float32.  The peeled selection iteration runs at
 type, and a bf16 round resizes the loss's logits by the matmul form.
 
 The losses stay on the device and are stacked at the end.
+
+With a ``parallel.collectives.SumReducer`` (``parallel.sharded.
+make_sharded_distill_round`` passes one) the round is one rank's part of
+the minibatch-parallel round: every rank draws the same global minibatch
+and takes its contiguous share of the rows; BN moments and the loss are
+summed over the ranks in the forward, the parameter gradients after the
+backward, so the parameters, the Adam slots and the selection stay the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -60,9 +68,11 @@ from ams_tpu_torch.utils.metrics import (
 @dataclasses.dataclass(frozen=True)
 class DistillSpec:
     """Static configuration of a distillation round; the fields of
-    ``ams_tpu``'s ``DistillSpec``.  The port runs one device: the fields it
-    does not run yet raise ``NotImplementedError`` when the round is
-    built."""
+    ``ams_tpu``'s ``DistillSpec``.  ``batch_axis`` names the minibatch-
+    parallel round, which ``parallel.sharded.make_sharded_distill_round``
+    builds over a process group; the fields the port does not run yet
+    (``width_axis``, single-pass convolutions) raise
+    ``NotImplementedError`` when the round is built."""
 
     iters: int = 200                 # run.py 'iter' flag default
     batch_size: int = 10             # run.py 'batch_size'
@@ -71,8 +81,8 @@ class DistillSpec:
     strategy: str = "full_model"
     coord_frac: float = 0.1
     compute_dtype: str = "float32"   # or "bfloat16" (mixed precision)
-    batch_axis: Optional[str] = None     # sharded rounds: ROADMAP A6
-    width_axis: Optional[str] = None
+    batch_axis: Optional[str] = None     # minibatch over ranks
+    width_axis: Optional[str] = None     # width partitioning: ROADMAP A6
     conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A7
     # Fused upsample+CE loss kernel (ops.fused_resize_ce): the same loss
     # to f32 rounding without the full-resolution logits.  Off by default,
@@ -100,13 +110,20 @@ class DistillSpec:
             return self.cdtype
         return layers.as_dtype(self.select_dtype)
 
-    def check_supported(self) -> None:
+    def check_supported(self, sharded: bool = False) -> None:
+        """Raises for a spec the port cannot run; ``sharded``: the round
+        is built with a process group (``batch_axis`` needs one)."""
         layers.as_dtype(self.compute_dtype)  # ValueError if unknown
         if self.select_dtype not in ("float32", "compute"):
             raise ValueError("select_dtype must be 'float32' or 'compute'")
-        if self.batch_axis or self.width_axis:
+        if self.width_axis:
             raise NotImplementedError(
-                "batch_axis/width_axis: sharded rounds are ROADMAP A6")
+                "width_axis: partitioning the activation width over "
+                "devices is ROADMAP A6, not ported")
+        if self.batch_axis and not sharded:
+            raise ValueError(
+                "batch_axis %r needs a process group: build the round with "
+                "parallel.make_sharded_distill_round" % (self.batch_axis,))
         if self.conv_precision not in ("auto", "highest"):
             raise NotImplementedError(
                 "conv_precision %r: the port's convolutions run in full "
@@ -138,8 +155,10 @@ def _flat_abs_delta(a, b):
     return torch.cat([torch.abs(a[k] - b[k]).reshape(-1) for k in sorted(a)])
 
 
-def make_distill_round(spec: DistillSpec):
-    """Build the round function.
+def make_distill_round(spec: DistillSpec, reduce=None):
+    """Build the round function; with ``reduce`` (a
+    ``parallel.collectives.SumReducer``), this rank's part of the
+    minibatch-parallel round (module docstring).
 
     Returned signature:
         round_fn(params, opt_state, frames_buf, labels_buf, n_valid, gen,
@@ -160,9 +179,17 @@ def make_distill_round(spec: DistillSpec):
     threshold and the count of |delta| values equal to it (0-dim device
     tensors), for checks of the selected fraction.
     """
-    spec.check_supported()
+    spec.check_supported(sharded=reduce is not None)
     auto = spec.strategy == "coord_desc_auto"
     ci = tuple(int(c) for c in spec.class_indices)
+    rows = slice(None)           # this rank's rows of the minibatch
+    if reduce is not None:
+        if spec.batch_size % reduce.world:
+            raise ValueError(
+                "batch_size %d does not divide over %d ranks"
+                % (spec.batch_size, reduce.world))
+        share = spec.batch_size // reduce.world
+        rows = slice(reduce.rank * share, (reduce.rank + 1) * share)
 
     def loss_and_grads(params_t, bn_state, frames, labels, class_mask,
                        cdtype):
@@ -177,9 +204,17 @@ def make_distill_round(spec: DistillSpec):
                 train=spec.bn_train, compute_dtype=cdtype,
                 stats_out=stats if spec.bn_train else None,
                 fused=spec.fused_loss, class_mask=class_mask,
-                resize_via=spec.resize_via(cdtype))
+                resize_via=spec.resize_via(cdtype), reduce=reduce)
             keys = list(leaves)
-            grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+            if reduce is None:
+                grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+            else:
+                # every rank seeds its copy of the replicated loss with
+                # 1/world: the all-reduces' backward sums the seeds back
+                # to 1, and each rank gets the gradient for its replica
+                seed = torch.full_like(loss, 1.0 / reduce.world)
+                grads = reduce.sum_tensors(torch.autograd.grad(
+                    loss, [leaves[k] for k in keys], grad_outputs=seed))
         return loss.detach(), dict(zip(keys, grads)), stats
 
     @torch.no_grad()
@@ -208,6 +243,7 @@ def make_distill_round(spec: DistillSpec):
             else:
                 idx = torch.randint(0, hi, (spec.batch_size,),
                                     generator=gen, device=dev)
+            idx = idx[rows]
             return frames_buf[idx].float(), labels_buf[idx]
 
         def step(params_t, bn_state, opt_state, it, cdtype):

@@ -109,18 +109,27 @@ def batch_norm_infer(x, gamma, beta, mean, var, eps=BN_EPS):
     return x * scale[:, None, None] + offset[:, None, None]
 
 
-def batch_norm_train(x, gamma, beta, eps=BN_EPS):
+def batch_norm_train(x, gamma, beta, eps=BN_EPS, reduce=None):
     """Training batch norm with per-batch statistics over N, H, W of a
     (B, C, H, W) tensor.
 
     Returns (y, batch_mean, batch_var), batch_var being the *biased*
     variance used for normalization (FusedBatchNormV3 semantics), computed
     as E[x^2] - E[x]^2 and clamped at 0, as the JAX package does.
+
+    ``reduce`` (a ``parallel.collectives.SumReducer``) takes the moments
+    over the global batch of which ``x`` is this rank's equal share: each
+    rank's E[x] and E[x^2] times 1/world, summed over the ranks in one
+    differentiable all-reduce.  At world size 1 that is the local moments
+    times 1.0, so the result is the same to the bit as without it.
     """
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3))
-                      - torch.square(mean), min=0.0)
+    sq = torch.square(xf).mean(dim=(0, 2, 3))
+    if reduce is not None:
+        mean, sq = reduce(torch.cat([mean, sq]) * (1.0 / reduce.world)
+                          ).chunk(2)
+    var = torch.clamp(sq - torch.square(mean), min=0.0)
     inv = torch.rsqrt(var + eps) * gamma
     y = (xf - mean[:, None, None]) * inv[:, None, None] + beta[:, None, None]
     return y.to(x.dtype), mean, var

@@ -142,15 +142,18 @@ def _two_over_255(device: torch.device, dtype=torch.float32) -> torch.Tensor:
         return torch.tensor(2.0 / 255.0, dtype=dtype, device=device)
 
 
-def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
+def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None,
+        reduce=None):
     if train:
         y, mean, var = layers.batch_norm_train(
             x, params[prefix + "/BatchNorm/gamma"],
-            params[prefix + "/BatchNorm/beta"], eps=eps)
+            params[prefix + "/BatchNorm/beta"], eps=eps, reduce=reduce)
         if stats_out is not None:
             # TF's fused BN hands the *Bessel-corrected* variance to
-            # AssignMovingAvg while normalizing with the biased one.
-            n = x.shape[0] * x.shape[2] * x.shape[3]
+            # AssignMovingAvg while normalizing with the biased one; the
+            # count is the global batch's (equal shares on every rank)
+            n = x.shape[0] * x.shape[2] * x.shape[3] \
+                * (1 if reduce is None else reduce.world)
             bessel = n / (n - 1) if n > 1 else 1.0
             stats_out[prefix + "/BatchNorm/moving_mean"] = mean.detach()
             stats_out[prefix + "/BatchNorm/moving_variance"] = \
@@ -164,11 +167,13 @@ def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None):
 
 
 def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
-             stats_out=None, compute_dtype=torch.float32) -> torch.Tensor:
+             stats_out=None, compute_dtype=torch.float32,
+             reduce=None) -> torch.Tensor:
     """MobileNetV2 trunk on preprocessed (B, 3, H, W) input; returns
-    (B, 320, ceil(H/16), ceil(W/16))."""
+    (B, 320, ceil(H/16), ceil(W/16)).  ``reduce`` spans training BN's
+    moments over ranks (``layers.batch_norm_train``)."""
     cd = compute_dtype
-    bn = dict(train=train, stats_out=stats_out)
+    bn = dict(train=train, stats_out=stats_out, reduce=reduce)
     x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2,
                       compute_dtype=cd)
     x = layers.relu6(_bn(params, "MobilenetV2/Conv", x, **bn))
@@ -195,12 +200,14 @@ def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
 
 def deeplab_head(params: Params, feat: torch.Tensor,
                  out_hw: Optional[Tuple[int, int]], *, train: bool = False,
-                 stats_out=None, compute_dtype=torch.float32) -> torch.Tensor:
+                 stats_out=None, compute_dtype=torch.float32,
+                 reduce=None) -> torch.Tensor:
     """ASPP (1x1 + image pooling) -> projection -> per-class logits, all
     (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits,
     in the compute type)."""
     cd = compute_dtype
-    bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out)
+    bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out,
+              reduce=reduce)
     b, _, fh, fw = feat.shape
     pooled = feat.float().mean(dim=(2, 3), keepdim=True)
     pooled = layers.conv2d(pooled, params["image_pooling/weights"],
@@ -225,11 +232,13 @@ def deeplab_head(params: Params, feat: torch.Tensor,
 
 def grid_logits_nchw(params: Params, frames: torch.Tensor, *,
                      train: bool = False, stats_out=None,
-                     compute_dtype=torch.float32) -> torch.Tensor:
+                     compute_dtype=torch.float32,
+                     reduce=None) -> torch.Tensor:
     """(B, H, W, 3) frames -> (B, num_classes, gh, gw) grid logits in the
     compute type; the preprocessing too runs in it when not training."""
     cd = layers.as_dtype(compute_dtype)
-    bn = dict(train=train, stats_out=stats_out, compute_dtype=cd)
+    bn = dict(train=train, stats_out=stats_out, compute_dtype=cd,
+              reduce=reduce)
     x = preprocess(frames, torch.float32 if train else cd)
     return deeplab_head(params, backbone(params, x, **bn), None, **bn)
 
@@ -244,12 +253,13 @@ def student_grid_logits(params: Params, frames: torch.Tensor, *,
 
 def student_logits(params: Params, frames: torch.Tensor, *,
                    train: bool = False, stats_out=None,
-                   compute_dtype=torch.float32) -> torch.Tensor:
+                   compute_dtype=torch.float32,
+                   reduce=None) -> torch.Tensor:
     """Raw frames -> per-pixel class logits (B, H, W, num_classes) f32;
     the preprocessing runs in f32 whatever the compute type."""
     h, w = frames.shape[1], frames.shape[2]
     bn = dict(train=train, stats_out=stats_out,
-              compute_dtype=layers.as_dtype(compute_dtype))
+              compute_dtype=layers.as_dtype(compute_dtype), reduce=reduce)
     feat = backbone(params, preprocess(frames), **bn)
     return deeplab_head(params, feat, (h, w), **bn).permute(0, 2, 3, 1)
 

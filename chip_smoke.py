@@ -7,7 +7,8 @@ Drives the port's paths at the full width of both models, from seeded
 random weights: the real student (MobileNetV2-DeepLabV3, 19 logits) in the
 deployed edge client's serving path (512x1024 frames, batch 8), the
 server's distillation events (256x512 frames, minibatch 10, 200
-iterations of coord_desc_auto) and the emulated experiment, and the
+iterations of coord_desc_auto), the emulated experiment, the live
+runtime, the multi-video server and the minibatch-parallel round, and the
 Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
 513x1025 at batch 16); and checks each kernel of the paths on the card:
 
@@ -79,7 +80,27 @@ Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
    predicted and no other kernel, the client equal to the server's values
    at float16 after every delta and to final_vars at the end, its ids
    equal to a CPU client's off near ties, and the bf16 round's times;
-9. one JSON line of kernel numbers, the wall-clock, and as the last line
+9. multi-device: (a) a MultiVideoServer with exps 25, 22, 12 and 17 on
+   the card (bf16, 256x512, minibatch 10), each memory 20 clip frames
+   labelled by make_sharded_labeler over a one-card mesh with phase 7's
+   teacher (ids equal to teacher_predictions, no kernel); video 0 of a
+   6-iteration multi-video round against a single-video round from the
+   same state, generator and class mask, equal to the bit under
+   deterministic algorithms; 200 iterations, then 20 with keep_mask
+   (finite losses, distinct videos, delta shares within 5-15%, masks
+   kept), one video's 200-iteration round alone, the device's busy share
+   over the keep_mask round, a bitwise save_state/load_state, and video
+   0's deployed artifact on the f32 client with every counter set to 0
+   just before it (K1 once per frame, nothing else); (b) the minibatch-
+   parallel round on two gloo ranks sharing the card (this script with
+   --dp-rank) and on one NCCL rank, against the single-device round:
+   coord_desc_auto for 6 iterations with and without the fused loss, and
+   full_model for one; the ranks equal to the bit, the tolerances of
+   tests/test_sharded_round.py (loss, selection masks; for full_model the
+   BN moving statistics and the weights), every counter set to 0 just
+   before each round in each rank (K2 once per iteration per rank with
+   the fused loss, no other launch), the one rank equal to the bit;
+10. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2541,7 +2562,557 @@ def phase_live(dev, clip, gt):
     return cli_rec, k1_rec
 
 
+MV_VIDEOS = (25, 22, 12, 17)   # class subsets that differ (union of 7)
+MV_FRAMES = 20           # clip frames in each video's memory
+MV_ITERS, MV_KEEP_ITERS = 200, 20   # the round, then one with keep_mask
+MV_CHECK_ITERS = 6       # the multi- against single-video comparison
+MV_CLIENT_FRAMES = 8     # frames the deployed client predicts, one by one
+DP_WORLD, DP_ITERS = 2, 6    # the minibatch-parallel round's ranks, iterations
+# its cases: coord_desc_auto over DP_ITERS from warm Adam slots, with and
+# without K2; full_model for one iteration from zero slots, where the BN
+# moving statistics and the weights have tests/test_sharded_round.py's
+# tight gates
+DP_CASES = {"fused": dict(strategy="coord_desc_auto", fused_loss=True),
+            "gather": dict(strategy="coord_desc_auto", fused_loss=False),
+            "full_model": dict(strategy="full_model", fused_loss=False,
+                               iters=1)}
+DP_BN_KEYS = ("MobilenetV2/Conv/BatchNorm/moving_mean",
+              "concat_projection/BatchNorm/moving_variance")
+DP_MEMORY = 16           # frames in its buffers
+DP_TIMEOUT_S = 300       # per rank process
+
+
+def deterministic(on):
+    """Turn PyTorch's (and cuDNN's) deterministic algorithms on or off.
+    The round is not deterministic on the card without them: two runs of
+    the same 6-iteration round from cold Adam slots flip a few selected
+    coordinates and then diverge (tools/torch_round_determinism.py)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def video_slice(tree, j):
+    """Video ``j``'s slice of a stacked parameter, mask or AdamState
+    tree."""
+    if isinstance(tree, dict):
+        return {k: v[j] for k, v in tree.items()}
+    return type(tree)(*[video_slice(x, j) if isinstance(x, dict) else x[j]
+                        for x in tree])
+
+
+def tree_max_abs_diff(a, b):
+    """max |a - b| over the tensors of two trees of the same keys."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def phase_multi_video(dev, clip):
+    """Phase 9, part A: the multi-video server on the card (see the module
+    docstring) -> its record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ams_tpu_torch import configs
+    from ams_tpu_torch.data.image import png_read
+    from ams_tpu_torch.data.video import frame_path, frame_to_rgb
+    from ams_tpu_torch.distill.train_step import make_distill_round
+    from ams_tpu_torch.models import xception_deeplab as xd
+    from ams_tpu_torch.parallel import (
+        make_mesh,
+        make_multi_video_round,
+        make_sharded_labeler,
+    )
+    from ams_tpu_torch.runtime.multi_server import MultiVideoServer
+    from ams_tpu_torch.runtime.network import SemanticNetwork
+    from ams_tpu_torch.stream.codec import decode_delta
+
+    n_frames = 8 * EXP_FPS
+    t_setup = time.perf_counter()
+    rgb = np.stack([frame_to_rgb(png_read(frame_path(clip, i)), (SH, SW))
+                    for i in range(n_frames)])
+    # phase 7's teacher: seeded, BN statistics from frames 0, 10, ..., 70
+    teacher = xd.init_teacher_params(SEED, device=dev)
+    padded = np.pad(rgb[::EXP_FPS], ((0, 0), (1, 0), (1, 0), (0, 0)),
+                    mode="symmetric")
+    calibrate_bn(teacher, torch.from_numpy(padded).to(dev),
+                 xd.teacher_logits_nchw)
+    mesh = make_mesh(1, device=dev)
+    label = make_sharded_labeler(mesh, teacher)
+    staged = torch.from_numpy(rgb).to(dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = label(staged)
+    torch.cuda.synchronize()
+    label_s = time.perf_counter() - t0
+    label_counts = launch_counts()
+    with torch.inference_mode():
+        want = xd.teacher_predictions(teacher, staged,
+                                      compute_dtype=torch.bfloat16)
+    check(ids.shape == (n_frames, SH, SW) and torch.equal(ids, want),
+          "the sharded labeler's ids differ from teacher_predictions")
+    check(not any(label_counts.values()),
+          "the labeler launched kernels: %s" % label_counts)
+    labels = ids.cpu().numpy().astype(np.uint8)
+    del teacher, staged, want
+    log("  labeled %d frames of %dx%d in %.2f s over %s (bf16, %d classes "
+        "present); ids equal to teacher_predictions; no kernel launched; "
+        "clip, teacher and labels %.2f s"
+        % (n_frames, SH, SW, label_s, mesh, len(np.unique(labels)),
+           time.perf_counter() - t_setup))
+
+    srv = MultiVideoServer(video_ids=MV_VIDEOS, height=SH,
+                           batch_size=MINI_BATCH, lr=LR,
+                           strategy="coord_desc_auto", coord_frac=COORD_FRAC,
+                           device=dev)
+    check(srv.spec.compute_dtype == "bfloat16" and len(
+        srv.class_indices) == 7, "server spec %s" % (srv.spec,))
+    for v in range(srv.V):
+        srv.ingest(v, list(rgb[v::srv.V][:MV_FRAMES]),
+                   list(labels[v::srv.V][:MV_FRAMES]))
+    n_train = sum(x[0].numel() for k, x in srv.params_V.items()
+                  if "moving_" not in k)
+    log("  server: %d videos (exps %s) on %s, class union %s, %d trainable "
+        "coordinates per video, %d frames each"
+        % (srv.V, list(MV_VIDEOS), srv.mesh, srv.class_indices, n_train,
+           MV_FRAMES))
+
+    # video 0 of a short multi-video round against a single-video round
+    # from the same state, generator and class mask
+    frames_V = [torch.from_numpy(m.stacked()[0]).to(dev)
+                for m in srv.memories]
+    labels_V = [torch.from_numpy(m.stacked()[1]).to(dev)
+                for m in srv.memories]
+    n_valid = [len(m) for m in srv.memories]
+    spec = dataclasses.replace(srv.spec, iters=MV_CHECK_ITERS)
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(1000 + j)
+                for j in range(srv.V)]
+
+    t0 = time.perf_counter()
+    deterministic(True)
+    try:
+        mv = make_multi_video_round(spec, srv.mesh, with_class_mask=True)(
+            srv.params_V, srv.opt_V, frames_V, labels_V, n_valid, gens(), LR,
+            srv.mask_V, srv.class_mask_V)
+        single = make_distill_round(spec)(
+            video_slice(srv.params_V, 0), video_slice(srv.opt_V, 0),
+            frames_V[0], labels_V[0], n_valid[0], gens()[0], LR,
+            video_slice(srv.mask_V, 0), class_mask=srv.class_mask_V[0])
+    finally:
+        deterministic(False)
+    check_s = time.perf_counter() - t0
+    p_mv = {k: v[0] for k, v in mv[0].items()}
+    bitwise = all(torch.equal(p_mv[k], single[0][k]) for k in p_mv) \
+        and torch.equal(mv[3][0], single[3]) \
+        and all(torch.equal(mv[2][k][0], single[2][k]) for k in single[2])
+    param_diff = tree_max_abs_diff(p_mv, single[0])
+    loss_diff = float((mv[3][0] - single[3]).abs().max())
+    log("  video 0 of a %d-iteration multi-video round against a single-"
+        "video round (deterministic algorithms; both in %.2f s): bitwise %s; "
+        "max |d param| %.3g, max |d loss| %.3g"
+        % (MV_CHECK_ITERS, check_s, bitwise, param_diff, loss_diff))
+    check(bitwise or (loss_diff <= 1e-3 * float(single[3].abs().max())
+                      and param_diff <= 2.05 * LR * MV_CHECK_ITERS),
+          "video 0 of the multi-video round disagrees with the single-"
+          "video round")
+    del mv, single
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = srv.train_round(iters=MV_ITERS)
+    round_s = time.perf_counter() - t0
+    masks_1 = {k: v.clone() for k, v in srv.mask_V.items()}
+    # one video's round alone over as many iterations, in this call (before
+    # the profiled round: the profiler's hooks may outlive it)
+    one_round = make_distill_round(dataclasses.replace(srv.spec,
+                                                       iters=MV_ITERS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round(video_slice(srv.params_V, 0), video_slice(srv.opt_V, 0),
+              frames_V[0], labels_V[0], n_valid[0], gens()[0], LR,
+              video_slice(srv.mask_V, 0), class_mask=srv.class_mask_V[0])
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    # the keep_mask round under a CUDA-only profile: the device's busy
+    # share is its kernels' and copies' time over the round's wall
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        losses_keep = srv.train_round(iters=MV_KEEP_ITERS, keep_mask=True)
+        torch.cuda.synchronize()
+        keep_s = time.perf_counter() - t0
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    if busy_s == 0:
+        log("  torch.profiler recorded no device time: busy share not "
+            "measured")
+    check(losses.shape == (srv.V, MV_ITERS) and np.isfinite(losses).all(),
+          "multi-video losses %s" % (losses.shape,))
+    check(losses_keep.shape == (srv.V, MV_KEEP_ITERS)
+          and np.isfinite(losses_keep).all(), "keep_mask losses")
+    check(all(torch.equal(masks_1[k], v) for k, v in srv.mask_V.items()),
+          "the keep_mask round changed the masks")
+    w = srv.params_V["logits/semantic/weights"]
+    check(all(not torch.equal(w[a], w[b]) for a in range(srv.V)
+              for b in range(a)), "two videos hold the same parameters")
+    shares = []
+    for v in range(srv.V):
+        host = srv.video_params(v)
+        dm, _ = decode_delta(srv.encode_delta(v),
+                             {k: x.shape for k, x in host.items()},
+                             strategy="coord_desc_auto")
+        tk = [k for k in dm if "moving_" not in k]
+        shares.append(sum(int(dm[k].sum()) for k in tk)
+                      / sum(dm[k].size for k in tk))
+    check(all(0.05 < x < 0.15 for x in shares),
+          "selected shares of the deltas %s" % shares)
+
+
+    # save_state / load_state round trip, bitwise
+    root = tempfile.mkdtemp(prefix="ams_chip_smoke_mv_")
+    try:
+        prefix = os.path.join(root, "mv")
+        t0 = time.perf_counter()
+        srv.save_state(prefix)
+        save_s = time.perf_counter() - t0
+        back = MultiVideoServer(video_ids=MV_VIDEOS, height=SH,
+                                batch_size=MINI_BATCH, lr=LR,
+                                strategy="coord_desc_auto",
+                                coord_frac=COORD_FRAC, seed=SEED + 1,
+                                device=dev)
+        check(back.load_state(prefix), "load_state found no bundle")
+        same = all(torch.equal(back.params_V[k], v)
+                   for k, v in srv.params_V.items()) \
+            and all(torch.equal(back.mask_V[k], v)
+                    for k, v in srv.mask_V.items()) \
+            and torch.equal(back.opt_V.step, srv.opt_V.step) \
+            and all(torch.equal(back.opt_V.m[k], srv.opt_V.m[k])
+                    and torch.equal(back.opt_V.v[k], srv.opt_V.v[k])
+                    for k in srv.opt_V.m) \
+            and np.array_equal(back._rng, srv._rng) \
+            and all(np.array_equal(a.stacked()[i], b.stacked()[i])
+                    for a, b in zip(back.memories, srv.memories)
+                    for i in (0, 1))
+        check(same, "save_state/load_state is not bitwise")
+        del back
+
+        # video 0's deployed artifact on the frozen f32 client, K1 counted
+        path = os.path.join(root, "client0")
+        srv.deploy(0, path)
+        client = SemanticNetwork(path + ".npz",
+                                 configs.class_weights(MV_VIDEOS[0]),
+                                 height=SH, frozen=True, device=dev)
+        reset_counters()
+        preds = [client.predict_input(rgb[i:i + 1])
+                 for i in range(MV_CLIENT_FRAMES)]
+        torch.cuda.synchronize()
+        client_counts = launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_sel = len(configs.class_indices(MV_VIDEOS[0]))
+    check(all(p.shape == (1, SH, SW) and p.min() >= 0 and p.max() < n_sel
+              for p in preds), "deployed client ids")
+    check(client_counts["resize_argmax"] == MV_CLIENT_FRAMES
+          and sum(client_counts.values()) == MV_CLIENT_FRAMES,
+          "the deployed client launched %s for %d frames"
+          % (client_counts, MV_CLIENT_FRAMES))
+    rec = {"videos": list(MV_VIDEOS), "frames_per_video": MV_FRAMES,
+           "label_s": label_s, "label_launches": label_counts,
+           "check_bitwise": bitwise, "check_s": check_s,
+           "check_param_diff": param_diff, "check_loss_diff": loss_diff,
+           "round_s": round_s, "iters": MV_ITERS,
+           "ms_per_video_iteration": 1e3 * round_s / (srv.V * MV_ITERS),
+           "keep_round_s": keep_s,
+           "single_round_s": single_s,
+           "single_ms_per_iteration": 1e3 * single_s / MV_ITERS,
+           "keep_busy_s": busy_s,
+           "busy_share": busy_s / keep_s if busy_s else None,
+           "selected_shares": shares, "save_s": save_s,
+           "first_losses": losses[:, 0].tolist(),
+           "last_losses": losses_keep[:, -1].tolist(),
+           "client_launches": client_counts}
+    log("  %d iterations for %d videos in %.2f s: %.2f ms per video-"
+        "iteration, against %.2f ms per iteration of one video's round of "
+        "as many alone (%.2f s); keep_mask round of %d in %.2f s under a CUDA "
+        "profile, the device busy %.2f s of it (%s); delta shares %s; "
+        "bundle saved in %.2f s, loaded bitwise; deployed client K1 %d "
+        "launches for %d frames"
+        % (MV_ITERS, srv.V, round_s, rec["ms_per_video_iteration"],
+           rec["single_ms_per_iteration"], single_s,
+           MV_KEEP_ITERS, keep_s, busy_s,
+           "not measured" if not busy_s
+           else "%.1f%%" % (100 * rec["busy_share"]),
+           ["%.4f" % x for x in shares], save_s,
+           client_counts["resize_argmax"], MV_CLIENT_FRAMES))
+    return rec
+
+
+def dp_spec(case, idx):
+    """The spec of a case of DP_CASES; ``idx`` (iterations, minibatch) sets
+    its minibatch and, unless the case names its own, its iterations."""
+    from ams_tpu_torch import configs
+    from ams_tpu_torch.distill.train_step import DistillSpec
+
+    kw = dict(DP_CASES[case])
+    kw.setdefault("iters", idx.shape[0])
+    return DistillSpec(batch_size=idx.shape[1], num_classes=19,
+                       class_indices=tuple(int(c) for c in
+                                           configs.class_indices(0)),
+                       coord_frac=COORD_FRAC, compute_dtype="float32", **kw)
+
+
+def dp_round(round_fn, data, dev, case):
+    """One round of ``round_fn`` on the saved student and buffers, from the
+    saved Adam slots (zero slots for full_model) -> {name: numpy array}
+    (params, masks, losses)."""
+    import numpy as np
+    import torch
+    from ams_tpu_torch.convert import adam_state_from_numpy, \
+        params_from_numpy
+    from ams_tpu_torch.distill.optimizer import adam_init
+    from ams_tpu_torch.distill.train_step import all_true_mask, split_params
+
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in data.items()
+                if k.startswith(prefix)}
+
+    params = params_from_numpy(part("param:"), dev)
+    opt = adam_init(split_params(params)[0]) if case == "full_model" \
+        else adam_state_from_numpy(data["opt:step"], part("optm:"),
+                                   part("optv:"), dev)
+    p, _, m, losses = round_fn(
+        params, opt,
+        torch.from_numpy(data["frames"]).to(dev),
+        torch.from_numpy(data["labels"]).to(dev), len(data["frames"]), None,
+        LR,
+        all_true_mask(params), idx_seq=data["idx"])
+    out = {"losses": losses.cpu().numpy()}
+    out.update({"param:" + k: v.cpu().numpy() for k, v in p.items()})
+    out.update({"mask:" + k: v.cpu().numpy() for k, v in m.items()})
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def dp_rank_main(argv):
+    """A rank of phase 9, part B (``--dp-rank``): the minibatch-parallel
+    round of every case of DP_CASES, each with every kernel's launch count
+    set to 0 just before it and read just after -> one .npz."""
+    import argparse
+
+    import numpy as np
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ams_tpu_torch.parallel import init_multi_host, \
+        make_sharded_distill_round
+    from ams_tpu_torch.utils.platform import resolve_device
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--dp-rank", "--dp-world", "--dp-port"):
+        ap.add_argument(flag, type=int, required=True)
+    for flag in ("--dp-device", "--dp-data", "--dp-out", "--dp-backend"):
+        ap.add_argument(flag, required=True)
+    a = ap.parse_args(argv)
+    dev = resolve_device(a.dp_device)
+    world = init_multi_host("localhost:%d" % a.dp_port, a.dp_world,
+                            a.dp_rank, backend=a.dp_backend)
+    check(world == a.dp_world, "world size %d" % world)
+    with np.load(a.dp_data) as z:
+        data = {k: z[k] for k in z.files}
+    deterministic(True)
+    res = {}
+    try:
+        for case in DP_CASES:
+            fn = make_sharded_distill_round(dp_spec(case, data["idx"]))
+            reset_counters()
+            t0 = time.perf_counter()
+            out = dp_round(fn, data, dev, case)
+            out["round_s"] = np.float64(time.perf_counter() - t0)
+            out.update({"launches:" + k: np.int64(n)
+                        for k, n in launch_counts().items()})
+            res.update({case + "/" + k: v for k, v in out.items()})
+    finally:
+        dist.destroy_process_group()
+    np.savez(a.dp_out, **res)
+    return 0
+
+
+def phase_data_parallel(dev):
+    """Phase 9, part B: the minibatch-parallel round on two gloo ranks that
+    share the card, and one rank on the device's backend (NCCL on the card),
+    against the single-device round, for every case of DP_CASES -> its
+    record."""
+    import socket
+
+    import numpy as np
+    from ams_tpu_torch.convert import params_to_numpy
+    from ams_tpu_torch.distill.train_step import make_distill_round
+    from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
+
+    frames = synthetic_frames(DP_MEMORY, SH, SW, SEED + 20)
+    # labels with the frames' structure: the red channel in 19 bands
+    labels = np.minimum(frames[..., 0] // 14, 18).astype(np.uint8)
+    idx = np.random.RandomState(SEED).randint(0, DP_MEMORY,
+                                              (DP_ITERS, MINI_BATCH))
+    data = {"frames": frames, "labels": labels, "idx": idx}
+    params = params_to_numpy(init_student_params(SEED, device="cpu"))
+    data.update({"param:" + k: v for k, v in params.items()})
+    # warm Adam slots keep coord_desc_auto's selection off the tie cluster
+    # of a first step from zero slots, where |delta| ~ 3.16 lr_t for most
+    # coordinates and rounding alone decides the cut
+    rng = np.random.RandomState(SEED + 1)
+    data["opt:step"] = np.int32(10)
+    for k, v in params.items():
+        if "moving_" not in k:
+            data["optm:" + k] = (rng.randn(*v.shape) * 1e-3).astype(
+                np.float32)
+            data["optv:" + k] = rng.uniform(1e-7, 1e-5, v.shape).astype(
+                np.float32)
+    root = tempfile.mkdtemp(prefix="ams_chip_smoke_dp_")
+    try:
+        path = os.path.join(root, "data.npz")
+        np.savez(path, **data)
+
+        def launch(name, world, backend):
+            with socket.socket() as sk:
+                sk.bind(("localhost", 0))
+                port = sk.getsockname()[1]
+            outs = [os.path.join(root, "%s_%d.npz" % (name, r))
+                    for r in range(world)]
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                 str(r), "--dp-world", str(world), "--dp-port", str(port),
+                 "--dp-device", str(dev), "--dp-data", path, "--dp-out",
+                 outs[r], "--dp-backend", backend], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT) for r in range(world)]
+            return procs, outs
+
+        t0 = time.perf_counter()
+        # NCCL refuses two ranks on one card: those two talk over gloo; the
+        # one rank takes the device's own backend (NCCL on the card)
+        runs = {"gloo": launch("gloo", DP_WORLD, "gloo"),
+                "one": launch("one", 1,
+                              "nccl" if dev.type == "cuda" else "gloo")}
+        # the single-device round on the card meanwhile
+        deterministic(True)
+        ref, ref_s = {}, {}
+        try:
+            for case in DP_CASES:
+                t1 = time.perf_counter()
+                ref[case] = dp_round(make_distill_round(dp_spec(case, idx)),
+                                     data, dev, case)
+                ref_s[case] = time.perf_counter() - t1
+        finally:
+            deterministic(False)
+        results = {}
+        try:
+            for backend, (procs, outs) in runs.items():
+                for r, p in enumerate(procs):
+                    try:
+                        text = p.communicate(timeout=DP_TIMEOUT_S)[0]
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        text = p.communicate()[0]
+                    text = text.decode(errors="replace")
+                    check(p.returncode == 0, "%s rank %d exited %s:\n%s"
+                          % (backend, r, p.returncode, text[-3000:]))
+                results[backend] = []
+                for o in outs:
+                    with np.load(o) as z:
+                        results[backend].append({k: z[k] for k in z.files})
+        finally:
+            for procs, _ in runs.values():
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    r0, r1 = results["gloo"]
+    check(set(r0) == set(r1) and all(np.array_equal(r0[k], r1[k])
+                                     for k in r0
+                                     if not k.endswith("/round_s")),
+          "the two gloo ranks' outputs differ")
+    rec = {"ranks_s": ranks_s, "world": DP_WORLD}
+    for case in DP_CASES:
+        spec = dp_spec(case, idx)
+        got, one = ({k.split("/", 1)[1]: v for k, v in r.items()
+                     if k.startswith(case + "/")}
+                    for r in (r0, results["one"][0]))
+        want = ref[case]
+        loss_rel = np.abs(got["losses"] - want["losses"]) \
+            / np.abs(want["losses"])
+        masks = [k for k in want if k.startswith("mask:")]
+        agree = sum(int((got[k] == want[k]).sum()) for k in masks) \
+            / sum(want[k].size for k in masks)
+        # BN moving statistics: the largest gap over every BN, in units of
+        # tests/test_sharded_round.py's tolerance (atol 1e-6 + rtol 1e-4)
+        stat_tol = max(float(np.max(np.abs(got[k] - want[k])
+                                    / (1e-6 + 1e-4 * np.abs(want[k]))))
+                       for k in want if "moving_" in k)
+        weight_diff = max(float(np.max(np.abs(got[k] - want[k])))
+                          for k in want if k.startswith("param:")
+                          and "moving_" not in k)
+        if spec.strategy == "full_model":
+            # tests/test_sharded_round.py:66-80: one iteration from zero
+            # slots; the weights within one Adam step of each other
+            check(loss_rel[0] <= 1e-5 and all(
+                np.allclose(got["param:" + k], want["param:" + k],
+                            rtol=1e-4, atol=1e-6) for k in DP_BN_KEYS)
+                  and weight_diff <= 2 * LR * 3.2 + 1e-6,
+                  "%s: two ranks against one device: loss rel %s, BN "
+                  "statistics %.3g of the tolerance, weights %.3g apart"
+                  % (case, loss_rel.tolist(), stat_tol, weight_diff))
+        else:
+            # tests/test_sharded_round.py:101-107
+            check(loss_rel[0] <= 1e-5 and loss_rel.max() <= 1e-3
+                  and agree > 0.999,
+                  "%s: two ranks against one device: loss rel %s, mask "
+                  "agreement %.6f" % (case, loss_rel.tolist(), agree))
+        counts = {k[len("launches:"):]: int(v) for k, v in got.items()
+                  if k.startswith("launches:")}
+        k2 = spec.iters if spec.fused_loss else 0
+        check(counts == dict(dict.fromkeys(counts, 0),
+                             resize_ce_loss_grad=k2),
+              "%s: a rank launched %s (K2 loss+grad expected %d times, no "
+              "other kernel)" % (case, counts, k2))
+        nccl_bitwise = all(np.array_equal(one[k], want[k]) for k in want)
+        check(nccl_bitwise, "%s: the one rank is not the single-device round "
+              "to the bit" % case)
+        rec_case = rec[case] = {
+            "iters": spec.iters, "loss_rel": loss_rel.tolist(),
+            "mask_agreement": agree, "bn_stat_gap_in_tolerances": stat_tol,
+            "weight_max_abs_diff": weight_diff, "launches_per_rank": counts,
+            "one_rank_bitwise": nccl_bitwise,
+            "round_s_per_rank": [float(r[case + "/round_s"])
+                                 for r in (r0, r1)],
+            "single_device_round_s": ref_s[case],
+            "one_rank_round_s": float(one["round_s"])}
+        log("  %s (%d iterations): %d ranks (gloo, one card) against the "
+            "single-device round: loss rel %s, masks agree %.6f, BN moving "
+            "statistics at most %.3g of tests/test_sharded_round.py's "
+            "tolerance, weights within %.3g; ranks equal to the bit; per "
+            "rank %s; one rank (the device's backend) equal to the single-"
+            "device round to the bit: %s; the round %s s on the ranks, %.2f "
+            "s on one rank, %.2f s on the device alone (the first call of "
+            "each process includes its warm-up)"
+            % (case, spec.iters, DP_WORLD, ["%.2g" % x for x in loss_rel],
+               agree, stat_tol, weight_diff, counts, nccl_bitwise,
+               ["%.2f" % x for x in rec_case["round_s_per_rank"]],
+               rec_case["one_rank_round_s"], ref_s[case]))
+    return rec
+
+
 def main() -> int:
+    # the H100's default cuBLAS workspace (32 MiB), named before the first
+    # cuBLAS call so that phase 9 may turn deterministic algorithms on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if "--dp-rank" in sys.argv:
+        return dp_rank_main(sys.argv[1:])
     t_start = time.perf_counter()
     import torch
 
@@ -2612,8 +3183,17 @@ def main() -> int:
             "clip, --height %d, %d iterations in bf16; then one session in "
             "this process with K1 counted)" % (SH, ROUND_ITERS))
         live_cli, live_k1 = phase_live(dev, clip, gt)
+
+        log("phase 9: multi-device (MultiVideoServer with %d videos on the "
+            "card, --height %d, minibatch %d, %d + %d iterations in bf16; "
+            "then the minibatch-parallel round on %d gloo ranks and one "
+            "NCCL rank, %d iterations)" % (len(MV_VIDEOS), SH, MINI_BATCH,
+                                           MV_ITERS, MV_KEEP_ITERS,
+                                           DP_WORLD, DP_ITERS))
+        multi_video = phase_multi_video(dev, clip)
     finally:
         shutil.rmtree(clip_root, ignore_errors=True)
+    data_parallel = phase_data_parallel(dev)
 
     main_case = cases[0]
     kernels = [{
@@ -2638,6 +3218,8 @@ def main() -> int:
         "teacher_path_launches": {name: r["k1_launches"]
                                   for name, r in labeler_runs.items()},
         "live_path_launches": live_k1["k1_launches"],
+        "multi_video_path_launches": multi_video["client_launches"][
+            "resize_argmax"],
         "teacher_max_abs_err": max(c["max_abs_err"] for c in teacher_cases),
         "teacher_cases": teacher_cases,
         "handover": handover,
@@ -2649,6 +3231,9 @@ def main() -> int:
             "name": "resize_ce_" + part, "route": "cuda",
             "source": frc.SOURCE, "replaces": frc.REPLACES,
             "launches": server_launches["resize_ce_" + part],
+            "data_parallel_launches_per_rank": {
+                case: r["launches_per_rank"]["resize_ce_" + part]
+                for case, r in data_parallel.items() if case in DP_CASES},
             "max_abs_err": max(c[key] for c in ce_cases),
             "ms": ce_main[part + "_ms"],
             "plain_ms": ce_main[part + "_plain_ms"],
@@ -2775,6 +3360,8 @@ def main() -> int:
            ["%.2f" % x for x in live_k1["ms_per_iteration"]],
            ["%.2f" % ev["ms_per_iteration"] for ev in events],
            experiment["early"]["ms_per_iteration"] or float("nan")))
+    log("multi-video server: %s" % json.dumps(multi_video))
+    log("minibatch-parallel round: %s" % json.dumps(data_parallel))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

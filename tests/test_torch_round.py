@@ -203,7 +203,7 @@ def test_round_validates_its_inputs(setup):
     with pytest.raises(ValueError):
         tround(*args, idx_seq=setup["idx"][:, :2])
     for bad in ({"compute_dtype": "bfloat16", "conv_precision": "default"},
-                {"batch_axis": "data"}, {"conv_precision": "default"}):
+                {"width_axis": "model"}, {"conv_precision": "default"}):
         with pytest.raises(NotImplementedError):
             tts.make_distill_round(tts.DistillSpec(**_spec("full_model"),
                                                    **bad))
