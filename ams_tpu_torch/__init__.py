@@ -11,7 +11,10 @@ resize+CE kernel), the emulated experiment (``cli/run.py``), the teacher
 and its labeler (``cli/extract_labels.py``), the live runtime
 (``cli/serve.py`` and ``cli/edge.py``) and the multi-device paths
 (``parallel``: the multi-video round and server, the minibatch-parallel
-round over ``torch.distributed``, the sharded labeler).  The kernels are
+round over ``torch.distributed``, the sharded labeler), and the rest:
+the legacy builders (``compat``), TF1 checkpoints read without
+TensorFlow, the converter (``cli/convert.py``), the native delta codec
+(``native``), TF32 rounds and the space-to-depth stem.  The kernels are
 in ``csrc/``.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; ROADMAP.md lists what is not ported.
 """

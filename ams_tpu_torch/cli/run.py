@@ -64,7 +64,9 @@ def build_parser():
                         "convolutions, f32 weights and optimizer)")
     p.add_argument("--conv_precision", choices=["auto", "default", "highest"],
                    default="auto",
-                   help="default is not ported yet (ROADMAP A7)")
+                   help="Conv accumulation of the f32 round: 'default' = "
+                        "TF32 on the card (single pass), 'auto'/'highest' "
+                        "= full f32")
     p.add_argument("--resume", action="store_true",
                    help="Continue a crashed run from its last saved event")
     p.add_argument("--no_resume_state", action="store_true",

@@ -25,8 +25,10 @@ sorted-key order, ``torch.quantile`` with linear interpolation, a strict
 package: each convolution casts its input and weight to bf16, while the
 parameters, the Adam slots, the BN moving statistics, the BN moments and
 the loss stay float32.  The peeled selection iteration runs at
-``select_dtype`` (float32 by default, TF32 off), the others at the compute
-type, and a bf16 round resizes the loss's logits by the matmul form.
+``select_dtype`` (float32 by default), the others at the compute type, and
+a bf16 round resizes the loss's logits by the matmul form.  Float32
+convolutions and products run at ``conv_precision`` for the whole round:
+full f32 by default, TF32 on the card with ``"default"``.
 
 The losses stay on the device and are stacked at the end.
 
@@ -63,6 +65,7 @@ from ams_tpu_torch.utils.metrics import (
     confusion_matrix,
     confusion_matrix_per_frame,
 )
+from ams_tpu_torch.utils.platform import CONV_PRECISIONS, conv_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +73,8 @@ class DistillSpec:
     """Static configuration of a distillation round; the fields of
     ``ams_tpu``'s ``DistillSpec``.  ``batch_axis`` names the minibatch-
     parallel round, which ``parallel.sharded.make_sharded_distill_round``
-    builds over a process group; the fields the port does not run yet
-    (``width_axis``, single-pass convolutions) raise
-    ``NotImplementedError`` when the round is built."""
+    builds over a process group; ``width_axis``, which the port does not
+    run yet, raises ``NotImplementedError`` when the round is built."""
 
     iters: int = 200                 # run.py 'iter' flag default
     batch_size: int = 10             # run.py 'batch_size'
@@ -83,7 +85,10 @@ class DistillSpec:
     compute_dtype: str = "float32"   # or "bfloat16" (mixed precision)
     batch_axis: Optional[str] = None     # minibatch over ranks
     width_axis: Optional[str] = None     # width partitioning: ROADMAP A6
-    conv_precision: str = "auto"     # "default" (single-pass): ROADMAP A7
+    # "auto"/"highest": full f32 (TF32 off); "default": TF32 convolutions
+    # and products on the card for the whole round (utils.platform.
+    # conv_precision), the JAX package's single-pass lax.Precision.DEFAULT
+    conv_precision: str = "auto"
     # Fused upsample+CE loss kernel (ops.fused_resize_ce): the same loss
     # to f32 rounding without the full-resolution logits.  Off by default,
     # as in the JAX package; PERF.md has the card's times for both paths.
@@ -124,11 +129,9 @@ class DistillSpec:
             raise ValueError(
                 "batch_axis %r needs a process group: build the round with "
                 "parallel.make_sharded_distill_round" % (self.batch_axis,))
-        if self.conv_precision not in ("auto", "highest"):
-            raise NotImplementedError(
-                "conv_precision %r: the port's convolutions run in full "
-                "f32 (TF32 off); other precisions are ROADMAP A7"
-                % (self.conv_precision,))
+        if self.conv_precision not in CONV_PRECISIONS:
+            raise ValueError("conv_precision must be one of %s, got %r"
+                             % (CONV_PRECISIONS, self.conv_precision))
         if self.loss_resize not in ("auto", "gather", "matmul"):
             raise ValueError("loss_resize must be auto, gather or matmul")
 
@@ -221,6 +224,14 @@ def make_distill_round(spec: DistillSpec, reduce=None):
     def round_fn(params, opt_state, frames_buf, labels_buf, n_valid, gen,
                  lr, mask, reselect: bool = True, class_mask=None,
                  idx_seq=None):
+        # every iteration at the spec's precision, the peeled selection
+        # step included, as JAX passes spec.precision to every loss
+        with conv_precision(spec.conv_precision):
+            return run(params, opt_state, frames_buf, labels_buf, n_valid,
+                       gen, lr, mask, reselect, class_mask, idx_seq)
+
+    def run(params, opt_state, frames_buf, labels_buf, n_valid, gen, lr,
+            mask, reselect, class_mask, idx_seq):
         dev = frames_buf.device
         if idx_seq is not None:
             idx_seq = torch.as_tensor(idx_seq, device=dev).long()

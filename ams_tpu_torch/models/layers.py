@@ -99,6 +99,45 @@ def depthwise_conv2d(x, w, stride=1, rate=1, padding="SAME", *,
                     dilation=rate, groups=w.shape[2])
 
 
+def conv2d_stride2_s2d(x, w, *, compute_dtype=None):
+    """3x3 stride-2 'SAME' conv through space-to-depth, as the JAX package
+    computes it: the 2x2 pixel blocks packed into channels (4C of them),
+    the 3x3 kernel repacked onto a 2x2 grid of those channels (zero where
+    a tap falls outside), then a 2x2 VALID convolution.  The same taps and
+    zero padding as ``conv2d(x, w, stride=2)``, in another summation order.
+
+    x: (B, C, H, W) with H, W odd (the +1-padded DeepLab input); w:
+    (3, 3, C, O).  Returns (B, O, ceil(H/2), ceil(W/2)).
+    """
+    x, w = _cast(x, w, compute_dtype)
+    b, c, h, wdt = x.shape
+    # the top/left pad of 1 below IS TF-SAME only for odd sizes (even
+    # inputs pad 0 on top/left)
+    if h % 2 == 0 or wdt % 2 == 0:
+        raise ValueError(
+            "conv2d_stride2_s2d requires odd H, W (the +1-padded DeepLab "
+            "input); got %dx%d, whose TF-SAME padding differs" % (h, wdt))
+    oh, ow = (h + 1) // 2, (wdt + 1) // 2
+    # pad 1 on each side (SAME), and further so the block grid is even;
+    # the extra rows and columns are never read by a kept output
+    hp, wp = 2 * (oh + 1), 2 * (ow + 1)
+    xp = F.pad(x, (1, wp - wdt - 1, 1, hp - h - 1))
+    # channel (a * 2 + bb) * C + cc holds pixel (2i + a, 2j + bb) of cc
+    xs = xp.reshape(b, c, hp // 2, 2, wp // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = xs.reshape(b, 4 * c, hp // 2, wp // 2)
+    w2 = w.new_zeros((2, 2, 4 * c, w.shape[-1]))
+    for p in range(2):
+        for q in range(2):
+            for a in range(2):
+                for bb in range(2):
+                    di, dj = 2 * p + a, 2 * q + bb
+                    if di <= 2 and dj <= 2:
+                        idx = (a * 2 + bb) * c
+                        w2[p, q, idx:idx + c] = w[di, dj]
+    out = F.conv2d(xs, w2.permute(3, 2, 0, 1))
+    return out[:, :, :oh, :ow]
+
+
 def batch_norm_infer(x, gamma, beta, mean, var, eps=BN_EPS):
     """Inference batch norm using moving statistics, on (B, C, H, W).
     Scale and offset are computed in the statistics' type and cast to the

@@ -168,14 +168,20 @@ def _bn(params, prefix, x, eps=layers.BN_EPS, train=False, stats_out=None,
 
 def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
              stats_out=None, compute_dtype=torch.float32,
-             reduce=None) -> torch.Tensor:
+             reduce=None, s2d_stem: bool = False) -> torch.Tensor:
     """MobileNetV2 trunk on preprocessed (B, 3, H, W) input; returns
     (B, 320, ceil(H/16), ceil(W/16)).  ``reduce`` spans training BN's
-    moments over ranks (``layers.batch_norm_train``)."""
+    moments over ranks (``layers.batch_norm_train``).  ``s2d_stem`` runs
+    the stride-2 stem as ``layers.conv2d_stride2_s2d`` (the same taps; a
+    TPU layout choice in the JAX package, which no path turns on)."""
     cd = compute_dtype
     bn = dict(train=train, stats_out=stats_out, reduce=reduce)
-    x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2,
-                      compute_dtype=cd)
+    if s2d_stem:
+        x = layers.conv2d_stride2_s2d(x, params["MobilenetV2/Conv/weights"],
+                                      compute_dtype=cd)
+    else:
+        x = layers.conv2d(x, params["MobilenetV2/Conv/weights"], stride=2,
+                          compute_dtype=cd)
     x = layers.relu6(_bn(params, "MobilenetV2/Conv", x, **bn))
     cin = STEM_CHANNELS
     for i, (exp, cout, stride, rate) in enumerate(_BLOCKS):

@@ -49,7 +49,7 @@ class RunConfig:
     horizon_points: int = 3
 
     compute_dtype: str = "float32"     # or "bfloat16" (mixed precision)
-    conv_precision: str = "auto"       # auto|highest ("default": ROADMAP A7)
+    conv_precision: str = "auto"       # auto|default|highest (DistillSpec)
     fold_deploy: bool = True           # BN-fold the deployed client artifact
     resume: bool = False               # continue from the last saved event
     resume_every_event: bool = True    # persist a resume bundle per event
@@ -72,11 +72,6 @@ class RunConfig:
             raise ValueError("ASR can only be used in simple mode")
         if self.enable_ATR and self.mode != "simple":
             raise ValueError("ATR can only be used in simple mode")
-        if self.conv_precision not in ("auto", "highest"):
-            raise NotImplementedError(
-                "conv_precision %r: the port's convolutions run in full f32 "
-                "(TF32 off); other precisions are ROADMAP A7"
-                % (self.conv_precision,))
         return self
 
     @property

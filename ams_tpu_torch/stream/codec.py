@@ -9,9 +9,12 @@ the reference's format (run.py:316-333):
 
 plus the opt-in ``int8`` and ``int8d`` wires and the stats annex.  Variable
 order is the TF collection order in ``ams_tpu_torch.models.var_order``.
-The codec runs on the host in numpy, as the JAX package's does.  The native
-C++ encoder of ``ams_tpu/native`` is a later slice: ``use_native=True``
-raises here rather than falling back.
+The codec runs on the host.  As in the JAX package, ``encode_delta``
+defaults to the native C++ codec (``ams_tpu_torch/native``, built with
+``g++ -lz`` at first use): float16 wires take its single-pass encoder,
+the others its ``gzip9``.  Where it cannot be built or loaded, the numpy and
+``gzip`` path below runs instead (the byte-format oracle), with one
+warning per process.
 """
 
 from __future__ import annotations
@@ -44,6 +47,25 @@ from ams_tpu_torch.models.var_order import (
 # Wire cost at the real student (33,088 stats values in 108 tensors):
 # +51.8 KB ≈ +9.6% on a coord@10% payload (538 KB -> 590 KB gzip'd).
 STATS_MAGIC = b"AMSB"
+
+# one-shot flag for the native-codec fallback warning in encode_delta
+_warned_native_fallback = False
+
+
+def _warn_native_fallback(e: Exception) -> None:
+    """Correctness-preserving fallback (the Python path is the oracle the
+    native codec is tested against), but never a silent one: the bytes
+    then differ from the JAX package's native codec's, so say so once per
+    process."""
+    global _warned_native_fallback
+    if not _warned_native_fallback:
+        _warned_native_fallback = True
+        import warnings
+        warnings.warn(
+            "native delta codec unavailable (%s: %s); falling back to the "
+            "pure-Python gzip path for all encodes in this process"
+            % (type(e).__name__, e))
+
 
 def delta_order(strategy: str, present=None) -> List[str]:
     """Canonical wire order for a strategy's delta payload (the ONLY place
@@ -166,7 +188,7 @@ def pack_stats_annex(stats: Dict[str, np.ndarray]) -> bytes:
 def encode_delta(params: Dict[str, np.ndarray],
                  masks: Optional[Dict[str, np.ndarray]],
                  strategy: str = "full_model",
-                 use_native: bool = False,
+                 use_native: bool = True,
                  wire_dtype: str = "float16",
                  stats: Optional[Dict[str, np.ndarray]] = None,
                  base: Optional[Dict[str, np.ndarray]] = None) -> bytes:
@@ -181,12 +203,11 @@ def encode_delta(params: Dict[str, np.ndarray],
         cannot reconstruct the deployed model.  None (default) keeps the
         payload byte-identical to the reference wire.
     base: the initial-checkpoint snapshot both ends hold (int8d only).
-    use_native: must stay False; the native encoder is not ported yet.
+    use_native: encode with the native codec (``ams_tpu_torch/native``),
+        whose bytes are the JAX package's native codec's; False takes the
+        Python path: the same payload once decompressed, in another deflate
+        stream, its gzip header's OS byte unknown.
     """
-    if use_native:
-        raise NotImplementedError(
-            "the native C++ delta encoder (ams_tpu/native) is not ported "
-            "yet; use use_native=False (same bytes)")
     order = delta_order(strategy, present=params)
     if wire_dtype == "int8d":
         if base is None:
@@ -209,9 +230,26 @@ def encode_delta(params: Dict[str, np.ndarray],
         raise ValueError(
             "full_model payloads already carry the moving statistics "
             "(SAVEABLE_ORDER); the stats annex is for coord strategies")
+    # annex integrity errors (non-finite stats, fp16 overflow) must raise
+    # regardless of which encoder runs -- pack it before the native guard
     tail = b"" if stats is None else pack_stats_annex(stats)
+    if use_native and wire_dtype == "float16":
+        # single-pass native path: bit-packing, fp16 conversion, the annex
+        # append and deflate in one C++ traversal
+        try:
+            from ams_tpu_torch.native import codec as native_codec
+            return native_codec.encode_delta_native(mask_list, value_list,
+                                                    tail=tail)
+        except (ImportError, OSError, RuntimeError) as e:
+            _warn_native_fallback(e)
     raw = pack_payload(mask_list, value_list, wire_dtype=wire_dtype,
                        base=base_list) + tail
+    if use_native:
+        try:
+            from ams_tpu_torch.native import codec as native_codec
+            return native_codec.gzip9(raw)
+        except (ImportError, OSError, RuntimeError) as e:
+            _warn_native_fallback(e)
     buf = io.BytesIO()
     # mtime=0 keeps payloads deterministic (gzip -9 parity is about size,
     # not the header timestamp).

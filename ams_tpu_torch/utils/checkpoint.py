@@ -2,9 +2,11 @@
 
 Counterpart of ``save_params``, ``load_params``, ``load_any`` and
 ``merge_restore`` in ``ams_tpu/utils/checkpoint.py``: the reference's
-``.npy`` dict snapshots, plus the ``.npz`` snapshots that
-``save_to_frozen_graph`` writes.  The TF1 checkpoint reader and Orbax come
-in a later slice of the port (``load_any`` names them and raises).
+``.npy`` dict snapshots, the ``.npz`` snapshots that
+``save_to_frozen_graph`` writes, and ``load_tf_checkpoint`` for the
+reference's TF1 checkpoints (``model.index`` + ``model.data-*``), read by
+``utils.tf_bundle`` without TensorFlow.  Orbax directories raise: the card
+machine has no orbax.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import os
 from typing import Callable, Mapping, Optional
 
 import numpy as np
+
+from ams_tpu_torch.utils import tf_bundle
 
 # Name fragments excluded when restoring weights, mirroring
 # SemanticNetwork.OPT_FILTER / OP_FILTER (reference SemanticNetwork.py:25-26):
@@ -58,20 +62,32 @@ def load_params(path: str,
     return out
 
 
+def load_tf_checkpoint(prefix: str) -> dict:
+    """Read a TF checkpoint (``prefix.index`` + ``prefix.data-*``) into a
+    flat name -> array dict: every tensor the restore filter keeps, under
+    TF's name, with TF's dtype, shape and bytes (the JAX package's
+    ``load_tf_checkpoint``, which calls TF's reader).  Each tensor is
+    checked against its size and CRC-32C (``utils.tf_bundle``)."""
+    return tf_bundle.read_bundle(
+        str(prefix), keep=lambda name: default_filter(name) is not None)
+
+
 def load_any(path: str) -> dict:
-    """.npy dict or .npz snapshot, with or without its extension, in the
-    JAX package's ``load_any`` order: the path itself, then ``.npy``, then
-    ``.npz`` (each read through the restore filter, suffixes stripped).
-    A TF checkpoint prefix or an Orbax directory raises
+    """.npy dict, .npz snapshot or TF checkpoint prefix, in the JAX
+    package's ``load_any`` order: the path itself, then ``.npy``, then
+    ``.npz`` (each read through the restore filter, suffixes stripped),
+    then a TF prefix (``path.index``).  An Orbax directory raises
     ``NotImplementedError``; nothing at the path, ``FileNotFoundError``."""
     path = str(path)
     for cand in (path, path + ".npy", path + ".npz"):
         if cand.endswith((".npz", ".npy")) and os.path.exists(cand):
             return load_params(cand)
-    if os.path.exists(path + ".index") or os.path.isdir(path):
+    if os.path.exists(path + ".index"):
+        return load_tf_checkpoint(path)
+    if os.path.isdir(path):
         raise NotImplementedError(
-            "TF1 and Orbax checkpoints are a later slice of the port; "
-            "convert %r to .npz or .npy" % path)
+            "%r looks like an Orbax checkpoint; the port has no orbax: "
+            "convert it to .npz with the JAX package's ams-convert" % path)
     raise FileNotFoundError(path)
 
 

@@ -1,9 +1,11 @@
 """Confusion-matrix mIoU metrics, in PyTorch.
 
-Counterpart of ``confusion_matrix``, ``calculate_miou`` and
-``string_class_iou`` in ``ams_tpu/utils/metrics.py``.  ``calculate_miou``
-and ``string_class_iou`` are the reference's NumPy golden implementation,
-copied unchanged (NaN / string-placeholder conventions included).  The
+Counterpart of ``ams_tpu/utils/metrics.py``: ``confusion_matrix``, the
+soft ("probability-weighted") confusion matrices of the legacy builders
+(``iou_from_confusion``, ``prob_confmat``, ``prob_confmat_star``,
+``soft_miou``), ``calculate_miou`` and ``string_class_iou``.  The last
+two are the reference's NumPy golden implementation, copied unchanged
+(NaN / string-placeholder conventions included).  The
 confusion matrix is a weighted ``bincount`` over ``num_classes**2`` cells
 on the tensors' device; the JAX package's one-hot matmul form is a TPU
 choice (scatters serialise there) that a GPU does not need.
@@ -64,6 +66,64 @@ def confusion_matrix_per_frame(labels, predictions, num_classes,
     """One confusion matrix per leading index: (B, ...) -> (B, C, C)."""
     return _weighted_counts(labels, predictions, num_classes, weights,
                             labels.shape[0])
+
+
+def iou_from_confusion(cm):
+    """Per-class IoU from a confusion matrix; NaN where a class is absent."""
+    cm = torch.as_tensor(cm, dtype=torch.float32)
+    tp = torch.diagonal(cm)
+    denom = cm.sum(dim=0) + cm.sum(dim=1) - tp
+    return torch.where(denom > 0, tp / torch.clamp(denom, min=1.0),
+                       torch.full_like(tp, float("nan")))
+
+
+def _soft_columns(labels, probs, num_classes):
+    """mat[p, i] = sum over pixels labelled i of probs[pixel, p]: each
+    pixel's probability row added to its label's column."""
+    labels = torch.as_tensor(labels, device=probs.device).reshape(-1).long()
+    mat = torch.zeros((num_classes, probs.shape[-1]), dtype=torch.float32,
+                      device=probs.device)
+    # an id outside [0, C) adds nothing, as its one-hot row is all zero
+    valid = (labels >= 0) & (labels < num_classes)
+    mat.index_add_(0, labels[valid], probs[valid])
+    return mat.T
+
+
+def prob_confmat(student_labels, teacher_probs, num_classes):
+    """Probability-weighted ("soft") confusion matrix (graph_utils.py:265-285).
+
+    COLUMN i accumulates the teacher's full probability vectors over pixels
+    the student labelled i (``mat[p, i]``, the JAX package's
+    ``einsum("np,ni->pi")`` layout; ``soft_miou`` is transpose-invariant,
+    but row-based consumers must not assume ``calculate_miou``'s
+    rows-are-ground-truth layout).  Returns the (num_classes, num_classes)
+    matrix of one batch; accumulate by summing.
+    """
+    probs = torch.as_tensor(teacher_probs, dtype=torch.float32)
+    probs = probs.reshape(-1, probs.shape[-1])
+    return _soft_columns(student_labels, probs, num_classes)
+
+
+def prob_confmat_star(student_labels, teacher_labels, weights, teacher_probs,
+                      num_classes):
+    """Soft confusion matrices for the student's and the teacher's labels,
+    each pixel's probabilities weighted by ``weights`` first
+    (graph_utils.py:288-317).  Returns (mat_student, mat_teacher)."""
+    probs = torch.as_tensor(teacher_probs, dtype=torch.float32)
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=probs.device).reshape(-1)
+    probs = probs.reshape(-1, probs.shape[-1]) * w[:, None]
+    return (_soft_columns(student_labels, probs, num_classes),
+            _soft_columns(teacher_labels, probs, num_classes))
+
+
+def soft_miou(acc_mat):
+    """mIoU of an accumulated soft confusion matrix (graph_utils.py:279-283:
+    tp on the diagonal, denominator row + column - tp, a plain mean with no
+    NaN guard)."""
+    mat = torch.as_tensor(acc_mat, dtype=torch.float32)
+    tp = torch.diagonal(mat)
+    return torch.mean(tp / (mat.sum(dim=1) + mat.sum(dim=0) - tp))
 
 
 def calculate_miou(conf_matrix, population=False, detailed=False, nan=False):

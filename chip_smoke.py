@@ -8,9 +8,11 @@ random weights: the real student (MobileNetV2-DeepLabV3, 19 logits) in the
 deployed edge client's serving path (512x1024 frames, batch 8), the
 server's distillation events (256x512 frames, minibatch 10, 200
 iterations of coord_desc_auto), the emulated experiment, the live
-runtime, the multi-video server and the minibatch-parallel round, and the
+runtime, the multi-video server and the minibatch-parallel round, the
 Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
-513x1025 at batch 16); and checks each kernel of the paths on the card:
+513x1025 at batch 16), and the TF1 reader, the converter, the native
+codec, the TF32 round and the legacy builders; and checks each kernel of
+the paths on the card:
 
 0. device line (name, power limit, torch and CUDA versions); a watchdog
    turns a hang into a traceback and a non-zero exit;
@@ -100,7 +102,38 @@ Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
    BN moving statistics and the weights), every counter set to 0 just
    before each round in each rank (K2 once per iteration per rank with
    the fused loss, no other launch), the one rank equal to the bit;
-10. one JSON line of kernel numbers, the wall-clock, and as the last line
+10. the rest of the port, every launch counter set to 0 just before each
+   part: (a) the committed TF1 student checkpoint read without TensorFlow
+   (equal to its tool's seeded arrays, the Adam slot and global_step
+   dropped; the read's ms); (b) `python -m ams_tpu_torch.cli.convert
+   <prefix> out.npz --fold --device cuda`, bitwise fold_student of (a) on
+   the card; (c) the native delta codec (its g++ build time from phase
+   1): encode_delta of a full-width delta (float16 full_model, and
+   coord_desc_auto at 10% with the stats annex) through the native
+   library with no fallback, equal to the Python path after decompression
+   and decode_delta, and byte-equal to the Python payload deflated with
+   the native settings (zlib's gzip wrapper, level 9, memLevel 9); the ms
+   of the three; (d) the facade's coord_desc_auto round (phase 4's setup, fused
+   loss) with conv_precision "highest", "default" (TF32) and "highest"
+   again (the f32 round's own spread on the card), in turns, from the
+   same state, seed and Adam slots (warmed under an all-False mask), for
+   3 and for 200 iterations: K2 loss+grad once per iteration and nothing
+   else, the TF32 flags off after each round, and over 3 iterations on
+   for every convolution and product of the TF32 round and off for the
+   f32 rounds' (read by a torch function mode); over 3 iterations TF32's losses
+   within 5% of f32's and the parameter deltas at cosine above 0.9; over
+   200 the losses within 5% over the first 10 iterations and on the
+   plateau (the mean of the last 20); masks agreeing on 98% (the
+   selection runs in TF32 too), and less than the f32 rerun's; ms per
+   iteration of each; (e) the
+   legacy builders on the card: create_student_v3 from the TF prefix
+   (predictions, loss, update_op, 3 train steps that move the BN
+   statistics, a train_coord that keeps unmasked weights), create_client
+   at 8x512x1024 with a confidence threshold against the ungated ids,
+   create_teacher's predictions against teacher_predictions at 2x257x513,
+   frames/s of each; (f) the space-to-depth stem against the stride-2
+   SAME convolution at 8x513x1025x3 in f32, both times;
+11. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -110,6 +143,7 @@ of JAX or of ams_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import os
@@ -3107,6 +3141,544 @@ def phase_data_parallel(dev):
     return rec
 
 
+# --- phase 10: the rest of the port's modules ------------------------------
+# (a) the TF1 reader on the committed fixture, (b) the converter CLI, (c) the
+# native delta codec, (d) the TF32 round, (e) the legacy builders at full
+# width, (f) the space-to-depth stem
+TF1_PREFIX = os.path.join("tests", "fixtures", "student_tf1", "model")
+S2D_SHAPE = (8, 513, 1025, 3)     # the +1-padded 512x1024 client frames
+S2D_TOL = 1e-5                    # rtol and atol, f32 with TF32 off
+# The TF32 round against the f32 round, from the same state: at the
+# horizon of tests/test_torch_bf16_round.py's bars (3 iterations), losses
+# per iteration within tests/test_mixed_precision.py's 5%, the parameter
+# deltas at cosine above 0.9; at 200 iterations train-mode BN has made any
+# two runs diverge (f32 against its own rerun on the card too: losses
+# 6.4% apart at worst, delta cosine 0.67; PERF.md §6), so there the
+# losses are held over the first 10 iterations and on the plateau (the
+# mean of the last 20, tests/test_parity_round_functional.py's gate)
+TF32_SHORT_ITERS = 3
+TF32_LOSS_RTOL = 0.05
+TF32_DELTA_COSINE = 0.9
+TF32_EARLY_ITERS, TF32_PLATEAU = 10, 20
+# The selection step runs in TF32 too (JAX passes spec.precision to every
+# iteration), unlike the bf16 round's f32 selection behind that test's
+# 0.995: TF32 moves a warm Adam step's |delta| by a median 8-11% against
+# f32's (train-mode BN's backward cancels), which flips 1.1-1.7% of the
+# coordinates at the 10% cut, where f32 against its rerun flips none
+# (PERF.md §6)
+TF32_MASK_AGREE = 0.98
+# Adam's first step from cold slots moves every live coordinate by ~lr,
+# so the coord_desc_auto selection would slice a tie cluster that TF32
+# rounding reorders: the rounds start from slots warmed under an
+# all-False mask (params frozen), as tests/test_torch_round.py's do
+TF32_WARM_ITERS = 10
+CODEC_REPS = 5                    # the encoders' timed calls, in turns
+COMPAT_TEACHER_HW = (257, 513)
+COMPAT_TEACHER_B = 2
+
+
+def _tf1_tool():
+    import importlib.util
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "make_tf1_student_ckpt",
+        os.path.join(root, "tools", "make_tf1_student_ckpt.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tf32_flags():
+    import torch
+
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _tf32_recorder():
+    """A torch function mode that reads the TF32 flags at every
+    convolution and product called under it: ``seen`` counts the calls by
+    the flags they ran under."""
+    import collections
+
+    from torch.overrides import TorchFunctionMode
+
+    class Recorder(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = collections.Counter()
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if "conv" in name or name in ("matmul", "mm", "bmm", "linear",
+                                          "einsum"):
+                self.seen[_tf32_flags()] += 1
+            return func(*args, **(kwargs or {}))
+
+    return Recorder()
+
+
+def _interleaved_host_ms(fns, reps=CODEC_REPS):
+    """The median host milliseconds of each of ``fns`` (a dict of
+    host-only callables), called in turns ``reps`` times after one warm-up
+    each, so that the host's drift falls on all of them alike."""
+    times = {k: [] for k in fns}
+    for k, fn in fns.items():
+        fn()
+    for _ in range(reps):
+        for k, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            times[k].append(1e3 * (time.perf_counter() - t0))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def _host_ms(fn, reps=3):
+    """Mean host milliseconds of ``fn()`` over ``reps`` calls after one
+    warm-up, each ending in a device synchronisation."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_rest(dev, codec_build):
+    """Phase 10: the TF1 reader, the converter, the native codec, the TF32
+    round, the legacy builders and the s2d stem, every launch counter set
+    to 0 just before each part and read just after."""
+    import collections
+    import gzip
+    import warnings
+    import zlib
+
+    import numpy as np
+    import torch
+    from ams_tpu_torch import compat, configs
+    from ams_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from ams_tpu_torch.distill import train_step as ts
+    from ams_tpu_torch.models import layers
+    from ams_tpu_torch.models.frozen import fold_student
+    from ams_tpu_torch.models.mobilenetv2_deeplab import (
+        init_student_params,
+        student_logits,
+    )
+    from ams_tpu_torch.models.xception_deeplab import teacher_predictions
+    from ams_tpu_torch.native import codec as native_codec
+    from ams_tpu_torch.runtime.network import SemanticNetwork
+    from ams_tpu_torch.stream.codec import (
+        decode_delta,
+        delta_order,
+        encode_delta,
+        pack_payload,
+        pack_stats_annex,
+    )
+    from ams_tpu_torch.utils import checkpoint as ckpt
+    from ams_tpu_torch.utils import tf_bundle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(root, TF1_PREFIX)
+    out = {}
+    none = {k: 0 for k in launch_counts()}
+
+    # (a) the TF1 reader, on a machine without TensorFlow
+    check("tensorflow" not in sys.modules, "tensorflow was imported")
+    reset_counters()
+    t0 = time.perf_counter()
+    student = ckpt.load_tf_checkpoint(prefix)
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    tool = _tf1_tool()
+    want = tool.student_arrays()
+    check(sorted(student) == sorted(want), "TF1 reader: %d names, want %d"
+          % (len(student), len(want)))
+    bad = [k for k in want if student[k].dtype != want[k].dtype
+           or not np.array_equal(student[k], want[k])]
+    check(not bad, "TF1 reader: values differ from the tool's in %s"
+          % bad[:3])
+    index = dict(tf_bundle.read_index(prefix)[1])
+    check(tool.SLOT in index and "global_step" in index
+          and tool.SLOT not in student and "global_step" not in student,
+          "TF1 reader: the Adam slot and global_step were not filtered")
+    check(launch_counts() == none, "TF1 reader launched %s" % launch_counts())
+    out["tf1_read"] = {"ms": read_ms, "tensors": len(student),
+                       "bytes": int(sum(v.nbytes for v in student.values()))}
+    log("  (a) TF1 reader: %d tensors (%.1f MB) in %.1f ms, equal to the "
+        "tool's seeded arrays; the Adam slot and global_step dropped"
+        % (len(student), out["tf1_read"]["bytes"] / 1e6, read_ms))
+
+    # (b) the converter, as a subprocess
+    tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_rest_")
+    try:
+        reset_counters()
+        dst = os.path.join(tmp, "deploy.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ams_tpu_torch.cli.convert", prefix, dst,
+             "--fold", "--device", dev.type], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+            capture_output=True, text=True, timeout=300)
+        convert_s = time.perf_counter() - t0
+        check(proc.returncode == 0, "cli.convert failed (rc %d): %s"
+              % (proc.returncode, proc.stderr[-2000:]))
+        folded = params_to_numpy(fold_student(params_from_numpy(student,
+                                                                dev)))
+        with np.load(dst) as z:
+            got = {k: z[k] for k in z.files}
+        check(sorted(got) == sorted(folded), "cli.convert --fold names")
+        bad = [k for k in folded if got[k].dtype != folded[k].dtype
+               or got[k].tobytes() != folded[k].tobytes()]
+        check(not bad, "cli.convert --fold differs from fold_student in %s"
+              % bad[:3])
+        check(launch_counts() == none, "the converter's check launched %s"
+              % launch_counts())
+        out["convert"] = {"s": convert_s, "tensors": len(got)}
+        log("  (b) python -m ams_tpu_torch.cli.convert %s --fold --device "
+            "%s: %d tensors in %.2f s, bitwise fold_student of (a) on the "
+            "same device" % (TF1_PREFIX, dev.type, len(got), convert_s))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) the native codec on a full-width student delta
+    reset_counters()
+    rng = np.random.RandomState(SEED + 40)
+    moved = {k: v + (0.01 * rng.randn(*v.shape)).astype(v.dtype)
+             for k, v in student.items()}
+    shapes = {k: v.shape for k, v in student.items()}
+    stats = {k: v for k, v in moved.items() if "moving_" in k}
+    coord = {k: rng.rand(*v.shape) < COORD_FRAC
+             for k, v in moved.items() if "moving_" not in k}
+    cases = {"full_model": dict(masks=None, strategy="full_model"),
+             "coord_desc_auto": dict(masks=coord, strategy="coord_desc_auto",
+                                     stats=stats)}
+    codec = {"build_s": codec_build["seconds"],
+             "cached": codec_build["cached"], "path": codec_build["path"]}
+    for name, kw in cases.items():
+        kw = dict(kw)
+        masks = kw.pop("masks")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")      # the fallback warns
+            blob = encode_delta(moved, masks, **kw)
+        check(native_codec._LIB is not None
+              and native_codec._LIB._name == codec_build["path"],
+              "encode_delta did not load the native library")
+        check(blob[9] == 3, "the gzip header's OS byte is %d, not zlib's "
+              "Unix 3: not the native codec" % blob[9])
+        python = encode_delta(moved, masks, use_native=False, **kw)
+        check(gzip.decompress(blob) == gzip.decompress(python),
+              "%s: native and Python payloads differ" % name)
+        dm, dv = decode_delta(blob, shapes, strategy=kw["strategy"])
+        pm, pv = decode_delta(python, shapes, strategy=kw["strategy"])
+        check(all(np.array_equal(dm[k], pm[k]) and np.array_equal(dv[k], pv[k])
+                  for k in pm), "%s: decoded deltas differ" % name)
+        raw = gzip.decompress(python)
+
+        def python_zlib9():
+            # the Python path's payload under the native codec's deflate
+            # settings (zlib's own gzip wrapper, memLevel 9): the same bytes
+            order = delta_order(kw["strategy"], present=moved)
+            ms = [np.ones(moved[n].shape, bool) if masks is None
+                  else np.asarray(masks[n]) for n in order]
+            body = pack_payload(ms, [moved[n] for n in order])
+            if kw.get("stats") is not None:
+                body += pack_stats_annex(kw["stats"])
+            z = zlib.compressobj(9, zlib.DEFLATED, 31, 9)
+            return z.compress(body) + z.flush()
+
+        check(python_zlib9() == blob, "%s: the Python payload under "
+              "deflate(9, memLevel 9) is not the native bytes" % name)
+        encoders = {
+            "native_ms": lambda: encode_delta(moved, masks, **kw),
+            "python_ms": lambda: encode_delta(moved, masks, use_native=False,
+                                              **kw),
+            "python_zlib9_ms": python_zlib9}
+        codec[name] = {"bytes": len(blob), "raw_bytes": len(raw),
+                       **_interleaved_host_ms(encoders)}
+        log("  (c) encode_delta %s: native %.1f ms, Python %.1f ms (gzip "
+            "module, memLevel 8), Python with the native bytes %.1f ms "
+            "(memLevel 9); %d B of %d; payloads equal after decompression "
+            "and decode_delta"
+            % (name, codec[name]["native_ms"], codec[name]["python_ms"],
+               codec[name]["python_zlib9_ms"], len(blob), len(raw)))
+    check(launch_counts() == none, "the codec launched %s" % launch_counts())
+    out["codec"] = codec
+    log("  (c) native codec built in %.2f s%s at first use -> %s"
+        % (codec_build["seconds"], " (cached)" if codec_build["cached"]
+           else "", codec_build["path"]))
+
+    # (d) the TF32 round against the f32 round, phase 4's setup
+    exp = 0
+    frames = synthetic_frames(MEMORY, SH, SW, SEED + 10)
+    staged = torch.from_numpy(frames).to(dev)
+    params = init_student_params(SEED, device=dev)
+    calibrate_bn(params, staged[:16])
+    teacher = init_student_params(SEED + 5, device=dev)
+    calibrate_bn(teacher, staged[16:32])
+    host = params_to_numpy(params)
+    tnet = SemanticNetwork(params_to_numpy(teacher), configs.class_weights(exp),
+                           height=SH, frozen=True, device=dev)
+    labels = np.concatenate([tnet.predict_input(frames[i:i + 16])
+                             for i in range(0, MEMORY, 16)])
+    memory = (collections.deque(frames), collections.deque(labels))
+    start = params_from_numpy(host, dev)
+    train, _ = ts.split_params(start)
+    _, warm, _, _ = ts.make_distill_round(ts.DistillSpec(
+        iters=TF32_WARM_ITERS, batch_size=MINI_BATCH, num_classes=19,
+        class_indices=tuple(int(c) for c in configs.class_indices(exp)),
+        strategy="full_model"))(
+            start, ts.adam_init(train), torch.from_numpy(frames).to(dev),
+            torch.from_numpy(labels).to(dev), MEMORY,
+            torch.Generator(device=dev).manual_seed(SEED + 44), LR,
+            {k: torch.zeros_like(v, dtype=torch.bool)
+             for k, v in train.items()}, reselect=False)
+    def facade_round(precision, iters, record=False):
+        net = SemanticNetwork(host, configs.class_weights(exp), height=SH,
+                              frozen=False, scale=[1],
+                              mini_batch_size=MINI_BATCH, lr=LR,
+                              coord_frac=COORD_FRAC, fused_loss=True,
+                              conv_precision=precision, seed=SEED,
+                              device=dev)
+        net.opt_state = ts.AdamState(
+            step=warm.step.clone(),
+            m={k: v.clone() for k, v in warm.m.items()},
+            v={k: v.clone() for k, v in warm.v.items()})
+        check(_tf32_flags() == (False, False), "TF32 on before the round")
+        torch.cuda.synchronize()
+        recorder = _tf32_recorder() if record else contextlib.nullcontext()
+        reset_counters()
+        t0 = time.perf_counter()
+        with recorder:
+            losses = net.train_with_deque(*memory, iters, "coord_desc_auto")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if record:
+            # the flags every convolution and product of the round saw
+            want_flags = (precision == "default",) * 2
+            check(sum(recorder.seen.values()) > 0
+                  and set(recorder.seen) == {want_flags},
+                  "%s round: convolutions ran under the TF32 flags %s, "
+                  "want only %s" % (precision, dict(recorder.seen),
+                                    want_flags))
+        counts = launch_counts()
+        want_counts = dict(none, resize_ce_loss_grad=iters)
+        check(counts == want_counts, "%s round launched %s, want %s"
+              % (precision, counts, want_counts))
+        check(_tf32_flags() == (False, False),
+              "the TF32 flags stayed on after the %s round" % precision)
+        check(np.isfinite(losses).all(), "%s round losses %s"
+              % (precision, losses[:5]))
+        after = net.get_vars()
+        return {"losses": losses, "launches": counts, "round_s": seconds,
+                "flags_in_round": {str(k): n for k, n in
+                                   recorder.seen.items()} if record else None,
+                "ms_per_iteration": 1e3 * seconds / iters,
+                "mask": np.concatenate([m.reshape(-1)
+                                        for m in net.curr_mask]),
+                "delta": np.concatenate([(after[k] - host[k]).reshape(-1)
+                                         for k in sorted(host)
+                                         if "moving_" not in k])}
+
+    def gap(a, b, early=None):
+        rel = np.abs(a["losses"] - b["losses"]) / np.abs(b["losses"])
+        tail = slice(-TF32_PLATEAU, None)
+        return {"early_max_rel": float(rel[:early].max()),
+                "max_rel": float(rel.max()),
+                "plateau_rel": float(abs(a["losses"][tail].mean()
+                                         - b["losses"][tail].mean())
+                                     / b["losses"][tail].mean()),
+                "mask_agreement": float((a["mask"] == b["mask"]).mean()),
+                "delta_cosine": float(np.dot(a["delta"], b["delta"]) / (
+                    np.linalg.norm(a["delta"]) * np.linalg.norm(b["delta"])))}
+
+    comparisons = {}
+    for iters, early in ((TF32_SHORT_ITERS, None),
+                         (ROUND_ITERS, TF32_EARLY_ITERS)):
+        # in turns: f32, TF32, f32 again (the pair gives f32's own spread);
+        # the short rounds record the flags each convolution ran under (the
+        # long ones are timed, so they run without the recording mode)
+        record = iters == TF32_SHORT_ITERS
+        f32, tf32, f32_again = (facade_round(p, iters, record)
+                                for p in ("highest", "default", "highest"))
+        comparisons[iters] = {
+            "flags_in_round": {"default": tf32["flags_in_round"],
+                               "highest": f32["flags_in_round"]},
+            "tf32_vs_f32": gap(tf32, f32, early),
+            "f32_vs_f32_rerun": gap(f32_again, f32, early),
+            "ms_per_iteration": {"default": tf32["ms_per_iteration"],
+                                 "highest": [f32["ms_per_iteration"],
+                                             f32_again["ms_per_iteration"]]},
+            "launches": tf32["launches"]["resize_ce_loss_grad"]}
+        log("  (d) %d iterations: TF32 against f32 %s; f32 against its "
+            "rerun %s" % (iters, json.dumps(comparisons[iters]["tf32_vs_f32"]),
+                          json.dumps(comparisons[iters]["f32_vs_f32_rerun"])))
+    short = comparisons[TF32_SHORT_ITERS]["tf32_vs_f32"]
+    long_ = comparisons[ROUND_ITERS]["tf32_vs_f32"]
+    check(short["max_rel"] < TF32_LOSS_RTOL
+          and short["delta_cosine"] > TF32_DELTA_COSINE
+          and short["mask_agreement"] >= TF32_MASK_AGREE,
+          "TF32 against f32 over %d iterations: %s"
+          % (TF32_SHORT_ITERS, short))
+    check(long_["early_max_rel"] < TF32_LOSS_RTOL
+          and long_["plateau_rel"] < TF32_LOSS_RTOL
+          and long_["mask_agreement"] >= TF32_MASK_AGREE,
+          "TF32 against f32 over %d iterations: %s" % (ROUND_ITERS, long_))
+    # TF32 has to show in the numbers too: its masks stand further from
+    # f32's than f32's own rerun does
+    rerun = comparisons[ROUND_ITERS]["f32_vs_f32_rerun"]
+    check(long_["mask_agreement"] < rerun["mask_agreement"],
+          "the TF32 round's masks agree with f32's on %.4f, the f32 rerun's "
+          "on %.4f: TF32 left no mark" % (long_["mask_agreement"],
+                                          rerun["mask_agreement"]))
+    timing = comparisons[ROUND_ITERS]["ms_per_iteration"]
+    out["tf32_round"] = {"launches": comparisons[ROUND_ITERS]["launches"],
+                         "ms_per_iteration": timing,
+                         "by_iterations": comparisons}
+    log("  (d) coord_desc_auto round, %d iterations of minibatch %d at "
+        "%dx%d, fused loss: TF32 %.2f ms per iteration, f32 %.2f and %.2f; "
+        "K2 loss+grad once per iteration in each round, nothing else; "
+        "TF32 on for every convolution of the TF32 round, off for the f32 "
+        "rounds' and after each"
+        % (ROUND_ITERS, MINI_BATCH, SH, SW, timing["default"],
+           *timing["highest"]))
+
+    # (e) the legacy builders at full width
+    sub_cw = configs.class_weights(SUBSET_EXP)
+    n_sel = int(np.sum(sub_cw))
+    reset_counters()
+    s3 = compat.create_student_v3(prefix, class_weights=sub_cw, device=dev)
+    mb = slice(0, MINI_BATCH)
+    f_mb, l_mb = frames[mb], labels[mb]
+    preds = s3["predictions"](s3["params"], f_mb)
+    check(tuple(preds.shape) == (MINI_BATCH, SH, SW)
+          and int(preds.max()) < n_sel, "v3 predictions %s" % (preds.shape,))
+    loss = float(s3["loss"](s3["params"], f_mb, l_mb))
+    check(np.isfinite(loss), "v3 loss %r" % loss)
+    cm = s3["update_op"](s3["params"], f_mb, l_mb)
+    want_px = int(np.isin(l_mb, np.where(sub_cw.reshape(-1) == 1)[0]).sum())
+    check(tuple(cm.shape) == (n_sel, n_sel) and int(cm.sum()) == want_px,
+          "v3 update_op %s sums to %s, want %d" % (tuple(cm.shape),
+                                                   float(cm.sum()), want_px))
+    p, opt = s3["params"], s3["opt_init"]()
+    stat = "MobilenetV2/Conv/BatchNorm/moving_mean"
+    train_losses = []
+    for step in range(3):
+        before = p[stat].clone()
+        p, opt, step_loss = s3["train"](p, opt, f_mb, l_mb, LR)
+        train_losses.append(float(step_loss))
+        check(not torch.equal(p[stat], before),
+              "v3 train step %d did not move the BN statistics" % step)
+    check(int(opt.step) == 3 and np.isfinite(train_losses).all(),
+          "v3 train: step %d, losses %s" % (int(opt.step), train_losses))
+    masks = {k: torch.rand(v.shape, device=dev) < COORD_FRAC
+             for k, v in s3["params"].items() if "moving_" not in k}
+    coord_p, _, _ = s3["train_coord"](s3["params"], s3["opt_init"](), f_mb,
+                                      l_mb, LR, masks)
+    frozen_bad = [k for k, m in masks.items()
+                  if not torch.equal(coord_p[k][~m], s3["params"][k][~m])]
+    check(not frozen_bad, "v3 train_coord moved unmasked coordinates of %s"
+          % frozen_bad[:3])
+    check(any(not torch.equal(coord_p[k][m], s3["params"][k][m])
+              for k, m in masks.items()), "v3 train_coord moved nothing")
+    v3_launches = launch_counts()
+    check(v3_launches == none, "v3 launched %s" % v3_launches)
+    v3_ms = _host_ms(lambda: s3["train"](s3["params"], s3["opt_init"](),
+                                         f_mb, l_mb, LR))
+    del s3, p, opt, coord_p
+
+    client_frames = synthetic_frames(B, H, W, SEED + 41)
+    reset_counters()
+    plain = compat.create_client(prefix, class_weights=sub_cw, device=dev)
+    ids = plain["predictions"](client_frames)
+    with torch.no_grad():
+        lg = student_logits(plain["params"],
+                            torch.from_numpy(client_frames).to(dev).float())
+        red = lg[..., torch.as_tensor(np.where(sub_cw.reshape(-1) == 1)[0],
+                                      device=dev)]
+        conf = torch.softmax(red, -1).amax(-1).cpu().numpy()
+    threshold = float(np.median(conf))
+    gated = compat.create_client(prefix, class_weights=sub_cw,
+                                 threshold=threshold, map_misc=0, device=dev)
+    gated_ids = gated["predictions"](client_frames)
+    colored = gated["output_colored"](client_frames)
+    check(colored.shape == (B, H, W, 3), "output_colored %s"
+          % (colored.shape,))
+    sure = conf > threshold + 1e-4
+    unsure = conf < threshold - 1e-4
+    check(np.array_equal(gated_ids[sure], ids[sure])
+          and (gated_ids[unsure] == 0).all() and sure.mean() > 0.3,
+          "create_client's confidence gate: ids differ from the ungated "
+          "ids above the threshold (%.4f)" % threshold)
+    client_launches = launch_counts()
+    check(client_launches == none, "create_client launched %s"
+          % client_launches)
+    client_ms = _host_ms(lambda: gated["predictions"](client_frames))
+    del plain, gated, lg, red
+
+    reset_counters()
+    teacher_c = compat.create_teacher(None, class_weights=sub_cw, device=dev)
+    th, tw = COMPAT_TEACHER_HW
+    tframes = synthetic_frames(COMPAT_TEACHER_B, th, tw, SEED + 42)
+    tpreds = teacher_c["predictions"](tframes)
+    with torch.no_grad():
+        direct = teacher_predictions(
+            teacher_c["params"], torch.from_numpy(tframes).to(dev).float())
+    check(torch.equal(tpreds, direct), "create_teacher's predictions differ "
+          "from teacher_predictions in %d pixels"
+          % int((tpreds != direct).sum()))
+    teacher_launches = launch_counts()
+    check(teacher_launches == none, "create_teacher launched %s"
+          % teacher_launches)
+    teacher_ms = _host_ms(lambda: teacher_c["predictions"](tframes))
+    del teacher_c
+    out["compat"] = {
+        "v3": {"loss": loss, "train_losses": train_losses,
+               "train_step_ms": v3_ms, "frames_per_s":
+               MINI_BATCH / (v3_ms / 1e3)},
+        "client": {"threshold": threshold, "sure_share": float(sure.mean()),
+                   "ms": client_ms, "frames_per_s": B / (client_ms / 1e3)},
+        "teacher": {"ms": teacher_ms,
+                    "frames_per_s": COMPAT_TEACHER_B / (teacher_ms / 1e3)}}
+    log("  (e) compat: create_student_v3 from the TF prefix (exp %d, %d "
+        "classes): train step %.1f ms (%.1f frames/s at %dx%d), loss %.4f, "
+        "3 steps moved the BN statistics, train_coord kept unmasked "
+        "coordinates; create_client %.1f frames/s (%dx%dx%d, threshold "
+        "%.4f); create_teacher %.2f frames/s (%dx%dx%d), ids equal to "
+        "teacher_predictions; no kernel launched"
+        % (SUBSET_EXP, n_sel, v3_ms, out["compat"]["v3"]["frames_per_s"],
+           SH, SW, loss, out["compat"]["client"]["frames_per_s"], B, H, W,
+           threshold, out["compat"]["teacher"]["frames_per_s"],
+           COMPAT_TEACHER_B, th, tw))
+
+    # (f) the space-to-depth stem against the stride-2 SAME convolution
+    reset_counters()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    b, h, w, c = S2D_SHAPE
+    x = torch.randn((b, c, h, w), generator=gen, device=dev)
+    k = torch.randn((3, 3, c, 32), generator=gen, device=dev) * 0.2
+    check(_tf32_flags() == (False, False), "TF32 on for the s2d check")
+    want = layers.conv2d(x, k, stride=2)
+    got = layers.conv2d_stride2_s2d(x, k)
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and torch.allclose(
+        got, want, rtol=S2D_TOL, atol=S2D_TOL),
+        "s2d stem: max abs err %.3g against the stride-2 conv" % err)
+    check(launch_counts() == none, "the s2d check launched %s"
+          % launch_counts())
+    out["s2d"] = {"shape": list(S2D_SHAPE), "max_abs_err": err,
+                  "s2d_ms": cuda_ms(lambda: layers.conv2d_stride2_s2d(x, k),
+                                    20),
+                  "conv_ms": cuda_ms(lambda: layers.conv2d(x, k, stride=2),
+                                     20)}
+    log("  (f) s2d stem at %s f32: max abs err %.3g (tolerance %g); %.4f ms "
+        "against the stride-2 conv's %.4f ms"
+        % ("x".join(map(str, S2D_SHAPE)), err, S2D_TOL, out["s2d"]["s2d_ms"],
+           out["s2d"]["conv_ms"]))
+    return out
+
+
 def main() -> int:
     # the H100's default cuBLAS workspace (32 MiB), named before the first
     # cuBLAS call so that phase 9 may turn deterministic algorithms on
@@ -3139,6 +3711,11 @@ def main() -> int:
     t0 = time.perf_counter()
     info = build.build(["resize_argmax", "resize_ce", "mbconv"])
     log("  built in %.2f s wall" % (time.perf_counter() - t0))
+    from ams_tpu_torch.native import build as native_build
+    codec_build = native_build.build()
+    log("  native delta codec (g++ -lz): %.2f s%s -> %s"
+        % (codec_build["seconds"], " (cached)" if codec_build["cached"]
+           else "", codec_build["path"]))
     for name, rec in info.items():
         log("  %s: %.2f s%s -> %s" % (name, rec["seconds"],
                                       " (cached)" if rec["cached"] else "",
@@ -3195,6 +3772,11 @@ def main() -> int:
         shutil.rmtree(clip_root, ignore_errors=True)
     data_parallel = phase_data_parallel(dev)
 
+    log("phase 10: the TF1 reader, the converter CLI, the native codec, the "
+        "TF32 round (%d iterations), the legacy builders and the s2d stem"
+        % ROUND_ITERS)
+    rest = phase_rest(dev, codec_build)
+
     main_case = cases[0]
     kernels = [{
         "name": "resize_argmax", "route": "cuda", "source": fra.SOURCE,
@@ -3234,6 +3816,8 @@ def main() -> int:
             "data_parallel_launches_per_rank": {
                 case: r["launches_per_rank"]["resize_ce_" + part]
                 for case, r in data_parallel.items() if case in DP_CASES},
+            **({"tf32_round_launches": rest["tf32_round"]["launches"]}
+               if part == "loss_grad" else {}),
             "max_abs_err": max(c[key] for c in ce_cases),
             "ms": ce_main[part + "_ms"],
             "plain_ms": ce_main[part + "_plain_ms"],
@@ -3362,6 +3946,12 @@ def main() -> int:
            experiment["early"]["ms_per_iteration"] or float("nan")))
     log("multi-video server: %s" % json.dumps(multi_video))
     log("minibatch-parallel round: %s" % json.dumps(data_parallel))
+    log("TF32 round against f32 at %dx%d, minibatch %d, %d iterations, "
+        "fused loss: %.2f against %.2f and %.2f ms per iteration"
+        % (SH, SW, MINI_BATCH, ROUND_ITERS,
+           rest["tf32_round"]["ms_per_iteration"]["default"],
+           *rest["tf32_round"]["ms_per_iteration"]["highest"]))
+    log("the rest of the port: %s" % json.dumps(rest))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

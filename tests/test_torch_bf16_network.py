@@ -101,8 +101,8 @@ def test_bf16_client_call_sequence_matches(case, tmp_path):
 
 def test_bf16_server_raises(case):
     """A bf16 server builds and trains (the mixed-precision round); what
-    is still not ported raises: single-pass f32 convolutions
-    (conv_precision="default", ROADMAP A7)."""
+    is still not ported raises: the reference's multi-scale draw
+    (scale other than [1])."""
     params, _, _, frames, labels = case
     kw = dict(class_weights_exp=configs.class_weights(EXP), height=64,
               frozen=False, scale=[1], mini_batch_size=2, lr=1e-3,
@@ -113,5 +113,5 @@ def test_bf16_server_raises(case):
     assert losses.shape == (1,) and np.isfinite(losses).all()
     assert all(v.dtype == np.float32 for v in net.get_vars().values())
     with pytest.raises(NotImplementedError):
-        TorchNetwork(dict(params), conv_precision="default",
-                     **kw).train_with_deque(list(frames), list(labels), 1)
+        TorchNetwork(dict(params), **dict(kw, scale=[0.5, 1])
+                     ).train_with_deque(list(frames), list(labels), 1)

@@ -192,6 +192,6 @@ def test_bf16_run_config_matches_jax():
     assert ours.validate() is ours and ref.validate() is ref
     assert RunConfig(compute_dtype="bfloat16").validate().compute_dtype == \
         JaxRunConfig(compute_dtype="bfloat16").validate().compute_dtype
-    with pytest.raises(NotImplementedError):
-        RunConfig(compute_dtype="bfloat16", conv_precision="default") \
-            .validate()
+    kw = dict(compute_dtype="bfloat16", conv_precision="default")
+    assert RunConfig(**kw).validate().conv_precision == \
+        JaxRunConfig(**kw).validate().conv_precision == "default"

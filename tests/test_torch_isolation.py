@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no ams_tpu, no cv2, no orbax.
+"""The port stands alone: no JAX, no ams_tpu, no cv2, no orbax, no
+tensorflow.
 
 The card machine has none of these installed, so every module of
 ams_tpu_torch must import in a process where they cannot be found, and
@@ -12,7 +13,7 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "ams_tpu", "cv2", "orbax")
+BLOCKED = ("jax", "jaxlib", "ams_tpu", "cv2", "orbax", "tensorflow")
 
 _CHILD = r"""
 import importlib, pkgutil, sys
@@ -54,6 +55,9 @@ def test_every_port_module_imports_without_jax_ams_tpu_cv2():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == len(_port_modules()) >= 15
+    assert {"ams_tpu_torch.compat", "ams_tpu_torch.native.build",
+            "ams_tpu_torch.native.codec", "ams_tpu_torch.utils.tf_bundle",
+            "ams_tpu_torch.cli.convert"} <= set(_port_modules())
 
 
 def _imported_roots(path):

@@ -172,8 +172,8 @@ def test_load_any_matches_jax_and_names_what_it_cannot_read(tmp_path):
         assert set(got) == set(want), path
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
-    (tmp_path / "tf.index").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    (tmp_path / "tf.index").write_bytes(b"")   # a TF prefix, no table
+    with pytest.raises(ValueError):
         ckpt.load_any(str(tmp_path / "tf"))
     os.makedirs(tmp_path / "orbax")
     with pytest.raises(NotImplementedError):

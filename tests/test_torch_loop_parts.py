@@ -372,9 +372,9 @@ def test_cli_flags_defaults_and_choices_match_jax():
     (dict(enable_ATR=True), ValueError),
     (dict(enable_ASR=True, mode="early"), ValueError),
     (dict(enable_ASR=True, enable_ATR=True, mode="horizon"), ValueError),
-    (dict(compute_dtype="bfloat16", conv_precision="default"),
-     NotImplementedError),
-    (dict(conv_precision="default"), NotImplementedError),
+    (dict(compute_dtype="bfloat16", conv_precision="default",
+          wire_dtype="int8d", no_restore=True), ValueError),
+    (dict(conv_precision="default", enable_ATR=True), ValueError),
 ])
 def test_validate_raises_where_jax_asserts(kw, err):
     with pytest.raises(err):

@@ -9,8 +9,8 @@ Against JAX's server, with no JAX round run:
   with params, Adam slots, masks and memories equal to the bit, and the
   loaded key is usable (a port round; ``jax.random.split``);
 - ``encode_delta`` gives the same bytes on the same params and masks as
-  JAX's Python codec, and the same payload as its native codec (whose
-  gzip header differs in the OS byte alone);
+  JAX's, both servers encoding with their native codecs (the gzip
+  header's OS byte included) and both with their Python codecs;
 - the fixed coord strategies' masks are equal to the bit;
 - ``deploy``'s artifact equals JAX's ``fold_student`` to the bit (the bar
   of tests/test_torch_frozen.py);
@@ -40,6 +40,8 @@ from ams_tpu_torch.runtime.multi_server import (
     prng_key,
     split_key,
 )
+from ams_tpu_torch.runtime import multi_server as tmulti
+from ams_tpu_torch.stream import codec as tcodec
 from ams_tpu_torch.stream.codec import decode_delta
 
 H, CAP = 32, 4
@@ -289,18 +291,21 @@ def test_bundles_load_across_packages(tmp_path, monkeypatch):
     tprefix = str(tmp_path / "port_resaved")
     tsrv.save_state(tprefix)
     _assert_bundles_equal(_bundle(jprefix), _bundle(tprefix))
-    # the same state gives the same wire bytes: JAX's server encodes with
-    # its native codec, whose gzip header names the OS (byte 9), which
-    # Python's gzip leaves unknown; its Python codec gives the same bytes
+    # the same state gives the same wire bytes: both servers encode with
+    # their native codecs, whose gzip header names the OS (byte 9), and
+    # both Python codecs, which leave it unknown, agree too
     for v in range(2):
         for annex in (True, False):
             ours = tsrv.encode_delta(v, stats_annex=annex)
-            assert gzip.decompress(ours) == gzip.decompress(
-                jsrv.encode_delta(v, stats_annex=annex))
+            assert ours == jsrv.encode_delta(v, stats_annex=annex)
             with monkeypatch.context() as m:
                 m.setattr(jmulti, "encode_delta", functools.partial(
                     jcodec.encode_delta, use_native=False))
-                assert ours == jsrv.encode_delta(v, stats_annex=annex)
+                m.setattr(tmulti, "encode_delta", functools.partial(
+                    tcodec.encode_delta, use_native=False))
+                python = tsrv.encode_delta(v, stats_annex=annex)
+                assert python == jsrv.encode_delta(v, stats_annex=annex)
+                assert gzip.decompress(python) == gzip.decompress(ours)
 
     # the loaded key drives a port round; the port's bundle loads in JAX
     losses = tsrv.train_round(iters=1, keep_mask=True)

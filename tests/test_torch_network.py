@@ -176,10 +176,10 @@ def test_client_rejects_what_is_not_ported(case, tmp_path):
     params = case[0]
     kw = dict(class_weights_exp=configs.class_weights(EXP), height=64,
               device="cpu")
-    # the bf16 client and server are ported; single-pass f32
-    # convolutions are not (ROADMAP A7)
+    # the bf16 client and server and single-pass f32 convolutions are
+    # ported; the reference's multi-scale draw is not
     with pytest.raises(NotImplementedError):
-        TorchNetwork(dict(params), frozen=False, scale=[1],
+        TorchNetwork(dict(params), frozen=False, scale=[0.5, 1],
                      mini_batch_size=4, lr=1e-3, conv_precision="default",
                      **kw).train_with_deque([np.zeros((64, 128, 3),
                                                       np.uint8)],
@@ -187,10 +187,15 @@ def test_client_rejects_what_is_not_ported(case, tmp_path):
                                             1)
     assert TorchNetwork(dict(params), frozen=True, compute_dtype="bfloat16",
                         **kw).compute_dtype == "bfloat16"
+    # a TF prefix is read now, and an empty index is no table; an Orbax
+    # directory stays unread (no orbax on the card)
     tf_prefix = os.path.join(str(tmp_path), "model.ckpt")
     open(tf_prefix + ".index", "wb").close()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         TorchNetwork(tf_prefix, frozen=True, **kw)
+    os.makedirs(os.path.join(str(tmp_path), "orbax"))
+    with pytest.raises(NotImplementedError):
+        TorchNetwork(os.path.join(str(tmp_path), "orbax"), frozen=True, **kw)
     net = TorchNetwork(dict(params), frozen=True, **kw)
     with pytest.raises(ValueError):
         net.train_with_deque([], [], 1)

@@ -111,17 +111,31 @@ def test_encode_delta_bytes_equal(wire, with_stats, student):
 
 def test_encode_delta_full_model_bytes_equal(student):
     moved = student[1]
-    assert tcodec.encode_delta(moved, None, strategy="full_model") == \
-        jcodec.encode_delta(moved, None, strategy="full_model",
-                            use_native=False)
+    for native in (False, True):
+        assert tcodec.encode_delta(moved, None, strategy="full_model",
+                                   use_native=native) == \
+            jcodec.encode_delta(moved, None, strategy="full_model",
+                                use_native=native)
     assert tcodec.delta_order("full_model", present=moved) == \
         jcodec.delta_order("full_model", present=moved)
 
 
 def test_encode_delta_native_raises(student):
-    with pytest.raises(NotImplementedError):
-        tcodec.encode_delta(student[1], student[2],
-                            strategy="coord_desc_auto", use_native=True)
+    """The native codec is ported: it is the default, as in JAX; its bytes
+    are JAX's native codec's (the gzip header's OS byte included), and its
+    payload, decompressed, is the Python path's."""
+    import gzip
+    import inspect
+
+    assert inspect.signature(tcodec.encode_delta).parameters[
+        "use_native"].default is True
+    kw = dict(strategy="coord_desc_auto", stats=student[3])
+    ours = tcodec.encode_delta(student[1], student[2], **kw)
+    assert ours == jcodec.encode_delta(student[1], student[2],
+                                       use_native=True, **kw)
+    python = tcodec.encode_delta(student[1], student[2], use_native=False,
+                                 **kw)
+    assert gzip.decompress(ours) == gzip.decompress(python)
 
 
 @pytest.mark.parametrize("wire", ["float16", "int8", "int8d"])
