@@ -8,7 +8,9 @@ OpenCV, so the port carries its own, held to cv2's output by the tests:
   with the RLE strategy, IDAT chunks of 8,192 bytes, libpng's window and
   header trimming for images under 16 KiB);
 - ``png_decode`` reads 8-bit gray, RGB and RGBA PNGs with any of the five
-  row filters and returns colour as BGR(A), as ``cv2.imread`` does;
+  row filters and returns colour as BGR(A), as ``cv2.imread`` does; the
+  rows are unfiltered by the native library (``native/png.cpp``), or by
+  the plain ``_unfilter`` with one warning if that cannot be built;
 - ``resize_linear_u8`` is cv2's uint8 ``INTER_LINEAR``: 11-bit fixed-point
   coefficients from float32 source coordinates, an int horizontal sum and
   the SIMD path's vertical rounding, and, at exactly 2x down in both axes,
@@ -152,10 +154,33 @@ def png_write(path: str, img: np.ndarray) -> None:
 
 # ------------------------------------------------------------------ decode
 
+_warned_native_fallback = False
+
+
+def _native_unfilter(data: np.ndarray, h: int, stride: int, bpp: int):
+    """``native.png.unfilter``, or None (with one warning per process)
+    when the native library cannot be built or loaded."""
+    global _warned_native_fallback
+    try:
+        from ams_tpu_torch.native import png as native_png
+        native_png.library()
+    except Exception as e:  # noqa: BLE001 - any build or load failure
+        if not _warned_native_fallback:
+            _warned_native_fallback = True
+            import warnings
+            warnings.warn("native PNG unfilter unavailable (%s: %s); "
+                          "falling back to the Python path, which runs "
+                          "Average and Paeth rows byte by byte"
+                          % (type(e).__name__, e), RuntimeWarning)
+        return None
+    return native_png.unfilter(data, h, stride, bpp)
+
+
 def _unfilter(data: np.ndarray, h: int, stride: int, bpp: int
               ) -> np.ndarray:
     """Undo the per-row filters of a decompressed, non-interlaced image:
-    runs of None, Sub and Up rows at once, Average and Paeth row by row."""
+    runs of None, Sub and Up rows at once, Average and Paeth row by row.
+    The plain version of the native unfilter."""
     data = data.reshape(h, stride + 1)
     kinds = data[:, 0]
     if kinds.max(initial=0) > 4:
@@ -232,7 +257,9 @@ def png_decode(blob: bytes) -> np.ndarray:
     data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if data.size < h * (stride + 1):
         raise ValueError("PNG image data too short")
-    img = _unfilter(data[:h * (stride + 1)], h, stride, bpp)
+    img = _native_unfilter(data[:h * (stride + 1)], h, stride, bpp)
+    if img is None:
+        img = _unfilter(data[:h * (stride + 1)], h, stride, bpp)
     if bpp == 1:
         return img.reshape(h, w)
     img = img.reshape(h, w, bpp)

@@ -25,7 +25,8 @@ from ams_tpu_torch.models.mobilenetv2_deeplab import (
     grid_logits_nchw,
     student_logits,
 )
-from ams_tpu_torch.models.resize import resize_nchw_matmul
+from ams_tpu_torch.models.resize import resize_nchw, resize_nchw_matmul
+from ams_tpu_torch.parallel import spatial
 
 
 def label_lut(class_indices, num_classes):
@@ -76,9 +77,19 @@ def masked_mean(x, mask, reduce=None):
     """Mean over elements where mask is nonzero (boolean_mask +
     reduce_mean); 0 for an empty mask.  With ``reduce`` (a
     ``parallel.collectives.SumReducer``) the numerator and the weight sum
-    are summed over the ranks first: the mean of the global batch."""
-    m = mask.to(x.dtype)
-    num, den = torch.sum(x * m), torch.sum(m)
+    are summed over the ranks first: the mean of the global batch.  ``x``
+    and ``mask`` may be width shards of the same columns: the sums are
+    then summed over the shards on the first one's device."""
+    if isinstance(x, spatial.WidthShards):
+        dev = x.device
+        num = den = 0
+        for xp, mp in zip(x.parts, mask.parts):
+            m = mp.to(xp.dtype)
+            num = num + torch.sum(xp * m).to(dev)
+            den = den + torch.sum(m).to(dev)
+    else:
+        m = mask.to(x.dtype)
+        num, den = torch.sum(x * m), torch.sum(m)
     if reduce is not None:
         num, den = reduce(torch.stack([num, den])).unbind()
     return num / torch.clamp(den, min=1.0)
@@ -115,6 +126,14 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
             are this rank's equal share of a global minibatch, and the BN
             moments and the loss are those of the global minibatch.
 
+    ``frames`` and ``labels`` may be width shards of the same columns
+    (``parallel.spatial``, the mesh's ``model`` axis): the forward runs on
+    the shards and gathers the grid logits.  The plain losses then resize,
+    on each shard's device, the label columns that shard holds, and sum
+    the masked sums over the shards; the fused loss gathers the labels and
+    runs its kernel once on the whole grid, as XLA runs a Pallas call that
+    it cannot partition.  Per-pixel aux entries are then width shards.
+
     Returns:
         (loss, aux).  On the standard paths aux = {'predictions',
         'weights', 'logits_reduced', 'reduced_labels'}; on the fused path
@@ -125,6 +144,34 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
         raise ValueError("class_mask is not supported on the fused path")
     b, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
     ci = _class_index(class_indices, frames.device)
+    sharded = isinstance(frames, spatial.WidthShards)
+    if (teacher_logits is not None or not fused) \
+            and resize_via not in ("gather", "matmul"):
+        raise ValueError("resize_via must be 'gather' or 'matmul', not %r"
+                         % (resize_via,))
+    if sharded and (not fused or teacher_logits is not None):
+        grid = grid_logits_nchw(params, frames, train=train,
+                                stats_out=stats_out,
+                                compute_dtype=compute_dtype, reduce=reduce)
+        grid_red = grid.float().index_select(1, ci)
+        resize = resize_nchw_matmul if resize_via == "matmul" else \
+            resize_nchw
+        parts = [_pixel_loss(
+            resize(grid_red.to(lab.device), (h, w), cols=(lo, hi)).permute(
+                0, 2, 3, 1), lab, class_indices, num_classes, class_mask,
+            None if teacher_logits is None
+            else teacher_logits[:, :, lo:hi].to(lab.device))
+            for lab, (lo, hi) in zip(labels.parts, labels.ranges)]
+        columns = lambda k: spatial.WidthShards(  # noqa: E731
+            [p[k] for p in parts], labels.ranges, labels.width, dim=2)
+        pixel_loss, weights = columns("pixel_loss"), columns("weights")
+        loss = masked_mean(pixel_loss, weights.map(lambda t: t > 0),
+                           reduce=reduce)
+        aux = {k: columns(k) for k in ("predictions", "weights",
+                                       "logits_reduced", "reduced_labels")}
+        return loss, aux
+    if sharded:
+        labels = labels.gather()
     if teacher_logits is None and fused:
         from ams_tpu_torch.ops.fused_resize_ce import fused_resize_ce
 
@@ -156,17 +203,28 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
         grid_red = grid.float().index_select(1, ci)
         reduced_logits = resize_nchw_matmul(grid_red,
                                             (h, w)).permute(0, 2, 3, 1)
-    elif resize_via == "gather":
+    else:
         logits = student_logits(params, frames, train=train,
                                 stats_out=stats_out,
                                 compute_dtype=compute_dtype, reduce=reduce)
         reduced_logits = logits.index_select(3, ci)
-    else:
-        raise ValueError("resize_via must be 'gather' or 'matmul', not %r"
-                         % (resize_via,))
+    aux = _pixel_loss(reduced_logits, labels, class_indices, num_classes,
+                      class_mask, teacher_logits)
+    loss = masked_mean(aux.pop("pixel_loss"), aux["weights"] > 0,
+                       reduce=reduce)
+    return loss, aux
+
+
+def _pixel_loss(reduced_logits, labels, class_indices, num_classes,
+                class_mask, teacher_logits):
+    """The per-pixel CE of channels-last logits over the class subset
+    against hard labels (or the soft teacher's), with the class mask:
+    {'pixel_loss', 'predictions', 'weights', 'logits_reduced',
+    'reduced_labels'}."""
     reduced_labels, weights, filtered_onehot = reduce_labels(
         labels, class_indices, num_classes)
     if class_mask is not None:
+        class_mask = class_mask.to(reduced_logits.device)
         cm = class_mask.to(reduced_logits.dtype)
         reduced_logits = torch.where(
             cm > 0, reduced_logits,
@@ -176,7 +234,8 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
             filtered_onehot.dtype)
         weights = torch.sum(filtered_onehot, dim=-1)
     if teacher_logits is not None:
-        red_teacher = teacher_logits.index_select(3, ci)
+        red_teacher = teacher_logits.index_select(
+            3, _class_index(class_indices, teacher_logits.device))
         if class_mask is not None:
             red_teacher = torch.where(
                 class_mask.to(red_teacher.dtype) > 0, red_teacher,
@@ -187,11 +246,10 @@ def distill_loss(params, frames, labels, class_indices, num_classes, *,
     else:
         pixel_loss = softmax_xent_with_soft_labels(reduced_logits,
                                                    filtered_onehot)
-    loss = masked_mean(pixel_loss, weights > 0, reduce=reduce)
     preds = torch.argmax(reduced_logits, dim=-1).to(torch.int32)
-    aux = {"predictions": preds, "weights": weights,
-           "logits_reduced": reduced_logits, "reduced_labels": reduced_labels}
-    return loss, aux
+    return {"pixel_loss": pixel_loss, "predictions": preds,
+            "weights": weights, "logits_reduced": reduced_logits,
+            "reduced_labels": reduced_labels}
 
 
 def selective_loss(reduced_logits, reduced_labels, weights, n_selected):

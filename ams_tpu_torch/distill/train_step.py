@@ -39,6 +39,15 @@ and takes its contiguous share of the rows; BN moments and the loss are
 summed over the ranks in the forward, the parameter gradients after the
 backward, so the parameters, the Adam slots and the selection stay the
 same on every rank.
+
+With the devices of a mesh row (``width_devices``, which
+``make_sharded_distill_round`` passes for a mesh with a ``model`` axis)
+the activation width is partitioned over them, as JAX's round does under
+``width_axis``: the frame and label buffers are split by columns
+(``parallel.spatial``), each draw indexes every shard on its device, the
+forward runs on the shards, and the loss sums over them.  The parameters
+stay on the row's first device; autograd brings their gradients there
+from every shard.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from ams_tpu_torch.models.mobilenetv2_deeplab import (
     student_forward,
     trainable_names,
 )
+from ams_tpu_torch.parallel import spatial
 from ams_tpu_torch.utils.metrics import (
     confusion_matrix,
     confusion_matrix_per_frame,
@@ -72,9 +82,9 @@ from ams_tpu_torch.utils.platform import CONV_PRECISIONS, conv_precision
 class DistillSpec:
     """Static configuration of a distillation round; the fields of
     ``ams_tpu``'s ``DistillSpec``.  ``batch_axis`` names the minibatch-
-    parallel round, which ``parallel.sharded.make_sharded_distill_round``
-    builds over a process group; ``width_axis``, which the port does not
-    run yet, raises ``NotImplementedError`` when the round is built."""
+    parallel round over a process group and ``width_axis`` the
+    partitioning of the width over a mesh row; both rounds are built by
+    ``parallel.sharded.make_sharded_distill_round``."""
 
     iters: int = 200                 # run.py 'iter' flag default
     batch_size: int = 10             # run.py 'batch_size'
@@ -84,7 +94,7 @@ class DistillSpec:
     coord_frac: float = 0.1
     compute_dtype: str = "float32"   # or "bfloat16" (mixed precision)
     batch_axis: Optional[str] = None     # minibatch over ranks
-    width_axis: Optional[str] = None     # width partitioning: ROADMAP A6
+    width_axis: Optional[str] = None     # width over a mesh row's devices
     # "auto"/"highest": full f32 (TF32 off); "default": TF32 convolutions
     # and products on the card for the whole round (utils.platform.
     # conv_precision), the JAX package's single-pass lax.Precision.DEFAULT
@@ -115,16 +125,20 @@ class DistillSpec:
             return self.cdtype
         return layers.as_dtype(self.select_dtype)
 
-    def check_supported(self, sharded: bool = False) -> None:
+    def check_supported(self, sharded: bool = False,
+                        width_split: bool = False) -> None:
         """Raises for a spec the port cannot run; ``sharded``: the round
-        is built with a process group (``batch_axis`` needs one)."""
+        is built with a process group (``batch_axis`` needs one);
+        ``width_split``: with a mesh row of several devices (``width_axis``
+        needs one, and one needs it)."""
         layers.as_dtype(self.compute_dtype)  # ValueError if unknown
         if self.select_dtype not in ("float32", "compute"):
             raise ValueError("select_dtype must be 'float32' or 'compute'")
-        if self.width_axis:
-            raise NotImplementedError(
-                "width_axis: partitioning the activation width over "
-                "devices is ROADMAP A6, not ported")
+        if bool(self.width_axis) != width_split:
+            raise ValueError(
+                "width_axis %r needs a mesh with a model axis, and a mesh "
+                "row needs width_axis: build the round with "
+                "parallel.make_sharded_distill_round" % (self.width_axis,))
         if self.batch_axis and not sharded:
             raise ValueError(
                 "batch_axis %r needs a process group: build the round with "
@@ -158,10 +172,12 @@ def _flat_abs_delta(a, b):
     return torch.cat([torch.abs(a[k] - b[k]).reshape(-1) for k in sorted(a)])
 
 
-def make_distill_round(spec: DistillSpec, reduce=None):
+def make_distill_round(spec: DistillSpec, reduce=None, width_devices=None):
     """Build the round function; with ``reduce`` (a
     ``parallel.collectives.SumReducer``), this rank's part of the
-    minibatch-parallel round (module docstring).
+    minibatch-parallel round; with ``width_devices`` (a mesh row of two
+    or more devices, and ``spec.width_axis``), the round with its width
+    partitioned over them (module docstring).
 
     Returned signature:
         round_fn(params, opt_state, frames_buf, labels_buf, n_valid, gen,
@@ -170,7 +186,8 @@ def make_distill_round(spec: DistillSpec, reduce=None):
 
     - params: flat dict (trainable + BN moving stats), on one device.
     - frames_buf: (capacity, H, W, 3) uint8 device buffer; labels_buf:
-      (capacity, H, W) uint8 or int32.
+      (capacity, H, W) uint8 or int32; with ``width_devices`` either may
+      also be split already (``spatial.shard_width(buf, devices, dim=2)``).
     - n_valid: number of live entries in the buffers (an int).
     - gen: a ``torch.Generator`` on the buffers' device for the draws
       (unused with ``idx_seq``).
@@ -182,7 +199,9 @@ def make_distill_round(spec: DistillSpec, reduce=None):
     threshold and the count of |delta| values equal to it (0-dim device
     tensors), for checks of the selected fraction.
     """
-    spec.check_supported(sharded=reduce is not None)
+    width = list(width_devices or ())
+    spec.check_supported(sharded=reduce is not None,
+                         width_split=len(width) > 1)
     auto = spec.strategy == "coord_desc_auto"
     ci = tuple(int(c) for c in spec.class_indices)
     rows = slice(None)           # this rank's rows of the minibatch
@@ -232,6 +251,9 @@ def make_distill_round(spec: DistillSpec, reduce=None):
 
     def run(params, opt_state, frames_buf, labels_buf, n_valid, gen, lr,
             mask, reselect, class_mask, idx_seq):
+        if width:
+            frames_buf, labels_buf = (spatial.shard_width(b, width, dim=2)
+                                      for b in (frames_buf, labels_buf))
         dev = frames_buf.device
         if idx_seq is not None:
             idx_seq = torch.as_tensor(idx_seq, device=dev).long()
@@ -255,6 +277,9 @@ def make_distill_round(spec: DistillSpec, reduce=None):
                 idx = torch.randint(0, hi, (spec.batch_size,),
                                     generator=gen, device=dev)
             idx = idx[rows]
+            if width:
+                return (frames_buf.map(lambda b: b[idx.to(b.device)].float()),
+                        labels_buf.map(lambda b: b[idx.to(b.device)]))
             return frames_buf[idx].float(), labels_buf[idx]
 
         def step(params_t, bn_state, opt_state, it, cdtype):

@@ -15,6 +15,12 @@ the teacher's stride-2 convolutions).  In bfloat16 a symmetric padding goes
 to the convolution itself, saving a copy of the padded tensor; float32
 keeps the explicit pad, and so its sums.
 
+Every layer here also takes width shards (``parallel.spatial.WidthShards``,
+the mesh's ``model`` axis): a convolution runs on each shard's column
+window, padded in height as the whole tensor and not in width (the window
+holds the halo and the zeros); training BN takes its moments as the
+column-weighted sum of the shards'; the rest runs shard by shard.
+
 ``compute_dtype`` (None keeps the input's type) casts activation and weight
 before a convolution, as the JAX package does.  In bfloat16 the activation
 is also put in ``torch.channels_last`` memory, the NHWC storage that both
@@ -29,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ams_tpu_torch.parallel import spatial
+
 BN_EPS = 1e-3          # FusedBatchNormV3 epsilon in the reference meta graph
 BN_DECAY = 0.9         # moving-average decay of the reference's BN updates
 
@@ -40,18 +48,22 @@ def _same_pad(size: int, k: int, stride: int, rate: int):
     return total // 2, total - total // 2
 
 
-def _pad(x, kh, kw, stride, rate, padding):
-    """-> (x, padding): in bf16 a symmetric padding is returned for the
-    convolution to apply; any other is applied here.  ``padding`` is
-    ``"SAME"`` (TF's) or ``((top, bottom), (left, right))``."""
+def _pairs(h, w, kh, kw, stride, rate, padding):
+    """``padding`` (``"SAME"``, TF's, or ``((top, bottom), (left,
+    right))``) as the pairs, for an (h, w) input."""
     if isinstance(padding, str):
         if padding != "SAME":
             raise ValueError("padding must be 'SAME' or ((top, bottom), "
                              "(left, right)), got %r" % (padding,))
-        top, bottom = _same_pad(x.shape[2], kh, stride, rate)
-        left, right = _same_pad(x.shape[3], kw, stride, rate)
-    else:
-        (top, bottom), (left, right) = padding
+        return (_same_pad(h, kh, stride, rate), _same_pad(w, kw, stride, rate))
+    return tuple(padding)
+
+
+def _pad(x, kh, kw, stride, rate, padding):
+    """-> (x, padding): in bf16 a symmetric padding is returned for the
+    convolution to apply; any other is applied here."""
+    (top, bottom), (left, right) = _pairs(x.shape[2], x.shape[3], kh, kw,
+                                          stride, rate, padding)
     if x.dtype == torch.bfloat16 and top == bottom and left == right:
         return x, (top, left)
     if top or bottom or left or right:
@@ -80,9 +92,25 @@ def _cast(x, w, compute_dtype):
     return x.to(cd), w.to(cd)
 
 
+def _over_width(conv, x, w, stride, rate, padding, compute_dtype):
+    """``conv`` of width shards: each shard's output columns from its
+    column window, with the whole tensor's height padding."""
+    (top, bottom), (left, right) = _pairs(x.shape[2], x.shape[3], w.shape[0],
+                                          w.shape[1], stride, rate, padding)
+    k_eff = (w.shape[1] - 1) * rate + 1
+    out_w = (x.shape[3] + left + right - k_eff) // stride + 1
+    return spatial.conv_columns(
+        x, k_eff, stride, left, out_w,
+        lambda win: conv(win, w.to(win.device), stride, rate,
+                         ((top, bottom), (0, 0)),
+                         compute_dtype=compute_dtype))
+
+
 def conv2d(x, w, stride=1, rate=1, padding="SAME", *, compute_dtype=None):
     """2-D convolution, NCHW x HWIO -> NCHW, TF 'SAME' padding unless
     ``padding`` gives the pairs; ``rate`` is the atrous rate (dilation)."""
+    if isinstance(x, spatial.WidthShards):
+        return _over_width(conv2d, x, w, stride, rate, padding, compute_dtype)
     x, w = _cast(x, w, compute_dtype)
     x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
     return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride, padding=pad,
@@ -93,6 +121,9 @@ def depthwise_conv2d(x, w, stride=1, rate=1, padding="SAME", *,
                      compute_dtype=None):
     """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1); ``padding`` as
     in ``conv2d``."""
+    if isinstance(x, spatial.WidthShards):
+        return _over_width(depthwise_conv2d, x, w, stride, rate, padding,
+                           compute_dtype)
     x, w = _cast(x, w, compute_dtype)
     x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
     return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
@@ -145,7 +176,8 @@ def batch_norm_infer(x, gamma, beta, mean, var, eps=BN_EPS):
     inv = torch.rsqrt(var + eps)
     scale = (gamma * inv).to(x.dtype)
     offset = (beta - mean * gamma * inv).to(x.dtype)
-    return x * scale[:, None, None] + offset[:, None, None]
+    return spatial.apply(x, lambda t: t * scale.to(t.device)[:, None, None]
+                         + offset.to(t.device)[:, None, None])
 
 
 def batch_norm_train(x, gamma, beta, eps=BN_EPS, reduce=None):
@@ -161,17 +193,25 @@ def batch_norm_train(x, gamma, beta, eps=BN_EPS, reduce=None):
     rank's E[x] and E[x^2] times 1/world, summed over the ranks in one
     differentiable all-reduce.  At world size 1 that is the local moments
     times 1.0, so the result is the same to the bit as without it.
+
+    Over width shards the moments are the shards' weighted by their
+    column counts (``spatial.mean``), and the statistics live on the
+    first shard's device.
     """
-    xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    sq = torch.square(xf).mean(dim=(0, 2, 3))
+    xf = spatial.apply(x, lambda t: t.float())
+    mean = spatial.mean(xf, (0, 2, 3))
+    sq = spatial.mean(spatial.apply(xf, torch.square), (0, 2, 3))
     if reduce is not None:
         mean, sq = reduce(torch.cat([mean, sq]) * (1.0 / reduce.world)
                           ).chunk(2)
     var = torch.clamp(sq - torch.square(mean), min=0.0)
     inv = torch.rsqrt(var + eps) * gamma
-    y = (xf - mean[:, None, None]) * inv[:, None, None] + beta[:, None, None]
-    return y.to(x.dtype), mean, var
+
+    def norm(t):
+        m, i, b = (v.to(t.device)[:, None, None] for v in (mean, inv, beta))
+        return ((t - m) * i + b).to(x.dtype)
+
+    return spatial.apply(xf, norm), mean, var
 
 
 def moving_average_update(moving, batch_stat, n_elems, decay=BN_DECAY,
@@ -188,4 +228,8 @@ def moving_average_update(moving, batch_stat, n_elems, decay=BN_DECAY,
 
 
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    return spatial.apply(x, lambda t: torch.clamp(t, 0.0, 6.0))
+
+
+def relu(x):
+    return spatial.apply(x, torch.relu)

@@ -17,6 +17,12 @@ statistics, as the reference's training graph does, and records in
 ``stats_out`` (a dict, if given) the batch moments that the moving-average
 update consumes.
 
+Frames may also come as width shards (``parallel.spatial.WidthShards``
+of (B, H, W, 3) over the devices of a mesh row): the forward then runs on
+the shards, as JAX's does under a ``model``-axis sharding, the +1 pad goes
+on the last shard, and the grid logits are gathered on the row's first
+device.
+
 ``compute_dtype`` (default float32, TF32 off) follows the JAX package's
 dtype flow: convolutions cast activation and weight to it, inference BN
 stays in the activation's type, training BN takes its moments in f32 and
@@ -37,6 +43,7 @@ import torch
 
 from ams_tpu_torch.models import layers
 from ams_tpu_torch.models.resize import resize_nchw
+from ams_tpu_torch.parallel import spatial
 from ams_tpu_torch.utils.platform import resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -127,13 +134,25 @@ def trainable_names(params) -> list:
     return [k for k in params if "moving_" not in k]
 
 
-def preprocess(frames: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def _preprocess(frames, dtype, right):
+    x = frames.to(dtype).permute(0, 3, 1, 2)
+    x = torch.nn.functional.pad(x, (0, right, 0, 1), value=127.5)
+    return x * _two_over_255(x.device, dtype) - 1.0
+
+
+def preprocess(frames, dtype=torch.float32):
     """(B, H, W, 3) frames in [0, 255] -> (B, 3, H+1, W+1) in [-1, 1] of
     ``dtype``: pad +1 bottom row and right column with 127.5, then
-    ``x*2/255-1``, each operation rounded to ``dtype`` as in JAX."""
-    x = frames.to(dtype).permute(0, 3, 1, 2)
-    x = torch.nn.functional.pad(x, (0, 1, 0, 1), value=127.5)
-    return x * _two_over_255(x.device, dtype) - 1.0
+    ``x*2/255-1``, each operation rounded to ``dtype`` as in JAX.  Width
+    shards of frames give width shards, the right column on the last."""
+    if not isinstance(frames, spatial.WidthShards):
+        return _preprocess(frames, dtype, 1)
+    last = len(frames.parts) - 1
+    ranges = frames.ranges[:-1] + [(frames.ranges[-1][0],
+                                    frames.ranges[-1][1] + 1)]
+    return spatial.WidthShards(
+        [_preprocess(f, dtype, int(i == last))
+         for i, f in enumerate(frames.parts)], ranges, frames.width + 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,6 +195,8 @@ def backbone(params: Params, x: torch.Tensor, *, train: bool = False,
     TPU layout choice in the JAX package, which no path turns on)."""
     cd = compute_dtype
     bn = dict(train=train, stats_out=stats_out, reduce=reduce)
+    if s2d_stem and isinstance(x, spatial.WidthShards):
+        raise ValueError("s2d_stem takes a whole input, not width shards")
     if s2d_stem:
         x = layers.conv2d_stride2_s2d(x, params["MobilenetV2/Conv/weights"],
                                       compute_dtype=cd)
@@ -210,27 +231,30 @@ def deeplab_head(params: Params, feat: torch.Tensor,
                  reduce=None) -> torch.Tensor:
     """ASPP (1x1 + image pooling) -> projection -> per-class logits, all
     (B, C, h, w); resized to ``out_hw`` unless it is None (grid logits,
-    in the compute type)."""
+    in the compute type).  Width shards of ``feat`` give the gathered
+    logits."""
     cd = compute_dtype
     bn = dict(eps=HEAD_BN_EPS, train=train, stats_out=stats_out,
               reduce=reduce)
-    b, _, fh, fw = feat.shape
-    pooled = feat.float().mean(dim=(2, 3), keepdim=True)
+    pooled = spatial.mean(spatial.apply(feat, lambda t: t.float()), (2, 3),
+                          keepdim=True)
     pooled = layers.conv2d(pooled, params["image_pooling/weights"],
                            compute_dtype=cd)
     pooled = torch.relu(_bn(params, "image_pooling", pooled, **bn))
-    pooled = pooled.expand(b, pooled.shape[1], fh, fw)
 
     aspp = layers.conv2d(feat, params["aspp0/weights"], compute_dtype=cd)
-    aspp = torch.relu(_bn(params, "aspp0", aspp, **bn))
+    aspp = layers.relu(_bn(params, "aspp0", aspp, **bn))
 
-    x = torch.cat([pooled.to(aspp.dtype), aspp], dim=1)
+    x = spatial.cat_channels([spatial.broadcast(pooled.to(aspp.dtype), aspp),
+                              aspp])
     x = layers.conv2d(x, params["concat_projection/weights"],
                       compute_dtype=cd)
-    x = torch.relu(_bn(params, "concat_projection", x, **bn))
+    x = layers.relu(_bn(params, "concat_projection", x, **bn))
 
     x = layers.conv2d(x, params["logits/semantic/weights"], compute_dtype=cd)
-    x = x + params["logits/semantic/biases"].to(x.dtype)[:, None, None]
+    bias = params["logits/semantic/biases"]
+    x = spatial.gather(spatial.apply(
+        x, lambda t: t + bias.to(t.device, t.dtype)[:, None, None]))
     if out_hw is None:
         return x
     return resize_nchw(x.float(), out_hw)

@@ -8,8 +8,16 @@ rounding identical to the reference.
 
 The public functions take channels-last ``(B, H, W, C)`` tensors like the
 JAX package; ``resize_nchw`` is the same map on the port's internal
-channels-first layout.  ``resize_nearest_ac`` (TF's nearest-neighbour
-resize) takes ``(..., H, W)``, so NCHW and bare ``(H, W)`` maps alike.
+channels-first layout, and may compute a range of output columns alone
+(a width shard's, ``parallel.spatial``).
+
+The gathers' backward sums each source row's band of output rows in a
+fixed order (``_banded_select``): ``index_select``'s own backward,
+``index_add_``, adds them by atomics on the card, in an order that changes
+from run to run, so two runs of the same round would differ.
+
+``resize_nearest_ac`` (TF's nearest-neighbour resize) takes ``(..., H,
+W)``, so NCHW and bare ``(H, W)`` maps alike.
 """
 
 from __future__ import annotations
@@ -62,28 +70,85 @@ def _device_lerp(in_size: int, out_size: int, device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
+def _device_bands(in_size: int, out_size: int, lo: int, hi: int,
+                  device: torch.device):
+    """For the lerp's two source-row tables (``lo`` and ``hi`` of
+    ``_lerp_weights``, output positions ``lo:hi``): each source row's
+    (in_size, band) positions in the table, padded with the table's length
+    (a zero row the backward appends).  Both tables are non-decreasing,
+    so a source row's positions are contiguous."""
+    out = []
+    for idx in _lerp_weights(in_size, out_size)[:2]:
+        idx = idx[lo:hi]
+        start = np.searchsorted(idx, np.arange(in_size), "left")
+        count = np.searchsorted(idx, np.arange(in_size), "right") - start
+        j = np.arange(max(int(count.max(initial=0)), 1))
+        out.append(np.where(j[None, :] < count[:, None],
+                            start[:, None] + j[None, :], len(idx)))
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t).to(device) for t in out)
+
+
+class _BandedSelect(torch.autograd.Function):
+    """``x.index_select(dim, idx)`` for a non-decreasing ``idx``; the
+    backward gathers each source row's band of output gradients (zeros
+    past its end) and sums over the band axis, in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, dim, idx, table):
+        ctx.dim = dim
+        ctx.save_for_backward(table)
+        return x.index_select(dim, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (table,) = ctx.saved_tensors
+        dim = ctx.dim
+        zero = g.new_zeros(g.shape[:dim] + (1,) + g.shape[dim + 1:])
+        picked = torch.cat([g, zero], dim).index_select(dim,
+                                                        table.reshape(-1))
+        shape = g.shape[:dim] + tuple(table.shape) + g.shape[dim + 1:]
+        return picked.reshape(shape).sum(dim + 1), None, None, None
+
+
+def _banded_select(x: torch.Tensor, dim: int, idx: torch.Tensor,
+                   table: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, idx)``, with the deterministic backward of
+    ``_BandedSelect`` (``table`` from ``_device_bands``) when ``x`` needs a
+    gradient."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x.index_select(dim, idx)
+    return _BandedSelect.apply(x, dim, idx, table)
+
+
+@functools.lru_cache(maxsize=None)
 def _device_matrix(in_size: int, out_size: int, device: torch.device):
     with torch.inference_mode(False):
         return torch.from_numpy(resize_matrix(in_size, out_size)).to(device)
 
 
-def resize_nchw(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Align-corners bilinear resize of a (B, C, H, W) tensor, in f32."""
+def resize_nchw(x: torch.Tensor, out_hw, cols=None) -> torch.Tensor:
+    """Align-corners bilinear resize of a (B, C, H, W) tensor, in f32;
+    with ``cols=(lo, hi)``, only those output columns, each computed as
+    in the whole resize."""
     h, w = x.shape[2], x.shape[3]
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    lo, hi = (0, ow) if cols is None else (int(cols[0]), int(cols[1]))
     if (oh, ow) == (h, w):
-        return x
+        return x if cols is None else x[..., lo:hi]
     orig_dtype = x.dtype
     x = x.float()
     ylo, yhi, yw = _device_lerp(h, oh, x.device)
-    xlo, xhi, xw = _device_lerp(w, ow, x.device)
+    xlo, xhi, xw = (t[lo:hi] for t in _device_lerp(w, ow, x.device))
+    ylo_t, yhi_t = _device_bands(h, oh, 0, oh, x.device)
+    xlo_t, xhi_t = _device_bands(w, ow, lo, hi, x.device)
 
-    top = x.index_select(2, ylo)
-    bot = x.index_select(2, yhi)
+    top = _banded_select(x, 2, ylo, ylo_t)
+    bot = _banded_select(x, 2, yhi, yhi_t)
 
     def h_lerp(rows):
-        left = rows.index_select(3, xlo)
-        right = rows.index_select(3, xhi)
+        left = _banded_select(rows, 3, xlo, xlo_t)
+        right = _banded_select(rows, 3, xhi, xhi_t)
         return left + (right - left) * xw
 
     top = h_lerp(top)
@@ -98,18 +163,20 @@ def resize_bilinear_ac(x: torch.Tensor, out_hw) -> torch.Tensor:
     return resize_nchw(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
 
 
-def resize_nchw_matmul(x: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_nchw_matmul(x: torch.Tensor, out_hw, cols=None) -> torch.Tensor:
     """``resize_nchw`` as two dense products ``R @ x @ C^T`` on a
     (B, C, H, W) tensor.  Forward values agree with the gather form to f32
-    reassociation, not bit for bit; its backward is two more products."""
+    reassociation, not bit for bit; its backward is two more products.
+    ``cols`` as in ``resize_nchw``."""
     h, w = x.shape[2], x.shape[3]
     oh, ow = int(out_hw[0]), int(out_hw[1])
+    lo, hi = (0, ow) if cols is None else (int(cols[0]), int(cols[1]))
     if (oh, ow) == (h, w):
-        return x
+        return x if cols is None else x[..., lo:hi]
     orig_dtype = x.dtype
     x = x.float()
     r = _device_matrix(h, oh, x.device)       # (oh, h)
-    cm = _device_matrix(w, ow, x.device)      # (ow, w)
+    cm = _device_matrix(w, ow, x.device)[lo:hi]     # (hi - lo, w)
     t = torch.einsum("Hg,bcgw->bcHw", r, x)
     out = torch.einsum("Ww,bcHw->bcHW", cm, t)
     return out.to(orig_dtype)

@@ -28,6 +28,12 @@ extract_labels):
   bias takes the logits' type.  In bfloat16 the convolutions leave their
   outputs channels-last (``layers``), and the grid logits go to the fused
   upsample+argmax kernel as they are.
+
+Frames may also come as width shards (``parallel.spatial.WidthShards`` of
+(B, H, W, 3) over a mesh row): the trunk and the ASPP run on the shards,
+the rate-6/12/18 branches through column windows that span every shard
+their halo reaches, and the grid logits are gathered on the row's first
+device before the resize.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ams_tpu_torch.models.mobilenetv2_deeplab import (
     _two_over_255,
 )
 from ams_tpu_torch.models.resize import resize_nchw, resize_nearest_ac
+from ams_tpu_torch.parallel import spatial
 from ams_tpu_torch.utils.platform import resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -147,7 +154,7 @@ def _bn(params, prefix, x, eps=layers.BN_EPS):
 def _sep_conv(params, prefix, x, stride=1, rate=1, cd=torch.float32):
     """relu -> depthwise(+BN) -> pointwise(+BN), slim xception_module
     order."""
-    x = torch.relu(x)
+    x = layers.relu(x)
     pad = _FIXED_PAD_3X3 if stride > 1 else "SAME"
     x = layers.depthwise_conv2d(
         x, params[prefix + "_depthwise/depthwise_weights"], stride=stride,
@@ -165,10 +172,10 @@ def xception_backbone(params: Params, x: torch.Tensor, *,
     cd = layers.as_dtype(compute_dtype)
     x = layers.conv2d(x, params[_p("entry_flow/conv1_1/weights")], stride=2,
                       padding=_FIXED_PAD_3X3, compute_dtype=cd)
-    x = torch.relu(_bn(params, _p("entry_flow/conv1_1"), x))
+    x = layers.relu(_bn(params, _p("entry_flow/conv1_1"), x))
     x = layers.conv2d(x, params[_p("entry_flow/conv1_2/weights")],
                       compute_dtype=cd)
-    x = torch.relu(_bn(params, _p("entry_flow/conv1_2"), x))
+    x = layers.relu(_bn(params, _p("entry_flow/conv1_2"), x))
 
     for scope, chans, stride, rate, res in _XCEPTION_BLOCKS:
         base = _p(scope) + "/xception_module"
@@ -195,38 +202,42 @@ def teacher_logits_nchw(params: Params, frames: torch.Tensor, *,
     it)."""
     h, w = frames.shape[1], frames.shape[2]
     cd = layers.as_dtype(compute_dtype)
-    x = frames.permute(0, 3, 1, 2).float()
-    x = x * _two_over_255(x.device) - 1.0
+    to_nchw = (lambda f: f.permute(0, 3, 1, 2).float()
+               * _two_over_255(f.device) - 1.0)
+    x = frames.map(to_nchw, dim=3) \
+        if isinstance(frames, spatial.WidthShards) else to_nchw(frames)
     feat = xception_backbone(params, x, compute_dtype=cd)
-    b, _, fh, fw = feat.shape
 
-    pooled = feat.float().mean(dim=(2, 3), keepdim=True)
+    pooled = spatial.mean(spatial.apply(feat, lambda t: t.float()), (2, 3),
+                          keepdim=True)
     pooled = layers.conv2d(pooled, params["image_pooling/weights"],
                            compute_dtype=cd)
     pooled = torch.relu(_bn(params, "image_pooling", pooled,
                             eps=HEAD_BN_EPS))
-    pooled = pooled.expand(b, pooled.shape[1], fh, fw)
 
-    branches = [pooled]
+    branches = []
     a0 = layers.conv2d(feat, params["aspp0/weights"], compute_dtype=cd)
-    branches.append(torch.relu(_bn(params, "aspp0", a0, eps=HEAD_BN_EPS)))
+    branches.append(layers.relu(_bn(params, "aspp0", a0, eps=HEAD_BN_EPS)))
     for i, rate in enumerate(ASPP_RATES, start=1):
         ax = layers.depthwise_conv2d(
             feat, params["aspp%d_depthwise/depthwise_weights" % i],
             rate=rate, compute_dtype=cd)
-        ax = torch.relu(_bn(params, "aspp%d_depthwise" % i, ax,
-                            eps=HEAD_BN_EPS))
+        ax = layers.relu(_bn(params, "aspp%d_depthwise" % i, ax,
+                             eps=HEAD_BN_EPS))
         ax = layers.conv2d(ax, params["aspp%d_pointwise/weights" % i],
                            compute_dtype=cd)
-        branches.append(torch.relu(_bn(params, "aspp%d_pointwise" % i, ax,
-                                       eps=HEAD_BN_EPS)))
+        branches.append(layers.relu(_bn(params, "aspp%d_pointwise" % i, ax,
+                                        eps=HEAD_BN_EPS)))
+    pooled = spatial.broadcast(pooled.to(branches[0].dtype), branches[0])
 
-    x = torch.cat([t.to(branches[1].dtype) for t in branches], dim=1)
+    x = spatial.cat_channels([pooled] + branches)
     x = layers.conv2d(x, params["concat_projection/weights"],
                       compute_dtype=cd)
-    x = torch.relu(_bn(params, "concat_projection", x, eps=HEAD_BN_EPS))
+    x = layers.relu(_bn(params, "concat_projection", x, eps=HEAD_BN_EPS))
     x = layers.conv2d(x, params["logits/semantic/weights"], compute_dtype=cd)
-    x = x + params["logits/semantic/biases"].to(x.dtype)[:, None, None]
+    bias = params["logits/semantic/biases"]
+    x = spatial.gather(spatial.apply(
+        x, lambda t: t + bias.to(t.device, t.dtype)[:, None, None]))
     if out_hw is None:
         return x
     if out_hw == "input":

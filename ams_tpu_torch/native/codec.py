@@ -32,11 +32,16 @@ def _bind(lib):
         ctypes.c_char_p, ctypes.c_long,
         ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
     ]
+    lib.ams_png_unfilter.restype = ctypes.c_long
+    lib.ams_png_unfilter.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long, ctypes.c_long,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
     return lib
 
 
 def library() -> ctypes.CDLL:
-    """The codec library, built and loaded on first use in this process."""
+    """The native library (the codec and ``native.png``'s unfilter),
+    built and loaded on first use in this process."""
     global _LIB
     with _LOCK:
         if _LIB is None:

@@ -8,8 +8,11 @@ split their work over.  ``init_multi_host`` joins a ``torch.distributed``
 process group, one process per rank, which the minibatch-parallel round
 sums over.
 
-The ``model`` axis (JAX's GSPMD partitioning of the activation width) is
-not ported: ``model_parallelism`` above 1 raises (ROADMAP A6).
+The ``model`` axis partitions the activation width of one network over
+the devices of a mesh row, as JAX's GSPMD does; the port keeps a row's
+shards in one process (``parallel.spatial``).  A row may name one device
+more than once (``Mesh([[cuda:0, cuda:0]])`` partitions the width on a
+one-card machine).
 """
 
 from __future__ import annotations
@@ -38,10 +41,8 @@ class Mesh:
         if grid.ndim != len(axis_names):
             raise ValueError("a %d-axis device grid needs %d axis names, "
                              "got %r" % (grid.ndim, grid.ndim, axis_names))
-        if grid.shape[1] != 1:
-            raise NotImplementedError(
-                "a model axis of %d: partitioning the activation width over "
-                "devices is ROADMAP A6, not ported" % grid.shape[1])
+        if grid.size == 0:
+            raise ValueError("a mesh needs at least one device")
         self.devices = grid
         self.axis_names = tuple(axis_names)
 
@@ -58,6 +59,12 @@ class Mesh:
         splits a leading axis over."""
         return list(self.devices.flat)
 
+    def rows(self, axis: str = "data"):
+        """The mesh's rows along ``axis``: for each of its entries, the
+        devices of the other axis (a width-partitioned network's row)."""
+        grid = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
+        return [list(row.flat) for row in grid]
+
     def __repr__(self):
         return "Mesh(%s, %r)" % (self.shape, [str(d) for d in
                                               self.device_list()])
@@ -68,9 +75,12 @@ def make_mesh(n_devices: Optional[int] = None,
               model_parallelism: Optional[int] = None,
               device=None) -> Mesh:
     """A ``(data, model)`` mesh over the first ``n_devices`` CUDA devices
-    (all of them by default); ``device="cpu"`` gives ``n_devices`` CPU
-    entries (1 by default), so the per-device split runs on a host without
-    a card.  Asking for more cards than exist raises ``ValueError``."""
+    (all of them by default), ``model_parallelism`` (default 1) devices
+    per row; ``device="cpu"`` gives ``n_devices`` CPU entries (1 by
+    default), so the per-device split runs on a host without a card.
+    Asking for more cards than exist, or a device count that
+    ``model_parallelism`` does not divide, raises ``ValueError`` (JAX
+    asserts the latter)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         devices = [torch.device("cuda", i)
@@ -86,11 +96,12 @@ def make_mesh(n_devices: Optional[int] = None,
         devices = [dev] * (1 if n_devices is None else n_devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
-    if model_parallelism not in (None, 1):
-        raise NotImplementedError(
-            "model_parallelism=%r: partitioning the activation width over "
-            "devices is ROADMAP A6, not ported" % (model_parallelism,))
-    return Mesh([[d] for d in devices], axis_names)
+    m = 1 if model_parallelism is None else int(model_parallelism)
+    if m < 1 or len(devices) % m:
+        raise ValueError("model_parallelism=%r does not divide %d devices"
+                         % (model_parallelism, len(devices)))
+    return Mesh([devices[i:i + m] for i in range(0, len(devices), m)],
+                axis_names)
 
 
 def init_multi_host(coordinator_address: Optional[str] = None,

@@ -10,10 +10,12 @@ signatures; the ``rng`` arguments are ``torch.Generator``s.
    the loss and the gradients are summed over the ranks
    (``parallel.collectives``), so the result is the single-device round's
    to rounding, and parameters, Adam slots and the ``coord_desc_auto``
-   selection stay the same on every rank.  JAX's round also partitions the
-   activation width over the mesh's ``model`` axis (GSPMD halo exchanges);
-   the port refuses that (ROADMAP A6), and has no counterpart of the JAX
-   round's ``.lower`` AOT hook (ROADMAP C).
+   selection stay the same on every rank.  Over a mesh with a ``model``
+   axis, rank r also partitions the activation width over the devices of
+   the mesh's row r, as JAX's GSPMD round does, with the halo exchanges
+   made explicit and the shards kept in the rank's process
+   (``parallel.spatial``).  The JAX round's ``.lower`` AOT hook has no
+   counterpart (ROADMAP C).
 
 2. **The multi-video round** (``make_multi_video_round``): V independent
    students, one per edge client.  The per-video state carries a leading V
@@ -25,7 +27,8 @@ signatures; the ``rng`` arguments are ``torch.Generator``s.
 ``make_vmapped_multi_video_round`` has the same signature and computes the
 same per-video results serially on the inputs' device: JAX's ``vmap`` over
 per-video weights has no counterpart here (ROADMAP C).  Teacher labeling
-splits the frame batch over the mesh's devices (``make_sharded_labeler``).
+splits the frame batch over the mesh's ``data`` axis and the width over
+its ``model`` axis (``make_sharded_labeler``).
 """
 
 from __future__ import annotations
@@ -33,13 +36,19 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
+from typing import TYPE_CHECKING
 
 import torch
+import torch.distributed as dist
 
-from ams_tpu_torch.distill.train_step import DistillSpec, make_distill_round
-from ams_tpu_torch.models.layers import as_dtype
+from ams_tpu_torch.parallel import spatial
 from ams_tpu_torch.parallel.collectives import SumReducer
 from ams_tpu_torch.parallel.mesh import Mesh
+
+# The round and the models import parallel.spatial, and so this package:
+# they are imported where they are used.
+if TYPE_CHECKING:
+    from ams_tpu_torch.distill.train_step import DistillSpec
 
 
 def _tree_map(fn, *trees):
@@ -82,11 +91,18 @@ def _per_device(devices, fn):
 def make_sharded_distill_round(spec: DistillSpec, mesh_or_group=None,
                                data_axis: str = "data",
                                model_axis: str = "model"):
-    """This rank's part of one student's minibatch-parallel round.
+    """This rank's part of one student's minibatch- and width-parallel
+    round.
 
-    ``mesh_or_group``: a ``torch.distributed`` process group, or None or a
-    ``Mesh`` for the default group (``init_multi_host``).  A ``Mesh`` has
-    no model axis above 1 (width partitioning is not ported).
+    ``mesh_or_group``: a ``torch.distributed`` process group, or None for
+    the default group (``init_multi_host``): the minibatch over its ranks.
+    Or a ``Mesh``: the minibatch over its ``data`` axis, which is the
+    default group (its world size must equal the axis's, ``ValueError``
+    otherwise; with no group initialized the axis must be 1), and rank r's
+    width over the devices of the mesh's row r when the ``model`` axis is
+    above 1.  The round then splits the frame and label buffers by
+    columns over the row, and params, Adam state and mask go to its first
+    device, where the results are.
     Returns the round of ``make_distill_round``:
     fn(params, opt, frames_buf, labels_buf, n_valid, rng, lr, mask,
     reselect=True, class_mask=None, idx_seq=None), with ``batch_size`` the
@@ -94,9 +110,41 @@ def make_sharded_distill_round(spec: DistillSpec, mesh_or_group=None,
     Every rank passes the same params, Adam state, buffers and draws: a
     generator seeded alike on every rank, or the same ``idx_seq``.
     """
-    group = None if isinstance(mesh_or_group, Mesh) else mesh_or_group
-    spec = dataclasses.replace(spec, batch_axis=data_axis)
-    return make_distill_round(spec, reduce=SumReducer(group))
+    from ams_tpu_torch.distill.train_step import make_distill_round
+
+    if not isinstance(mesh_or_group, Mesh):
+        spec = dataclasses.replace(spec, batch_axis=data_axis)
+        return make_distill_round(spec, reduce=SumReducer(mesh_or_group))
+    mesh = mesh_or_group
+    rows = mesh.rows(data_axis)
+    reduce = None
+    if dist.is_initialized():
+        reduce = SumReducer()
+        if reduce.world != len(rows):
+            raise ValueError("the mesh's %r axis is %d but the process "
+                             "group has %d ranks"
+                             % (data_axis, len(rows), reduce.world))
+    elif len(rows) != 1:
+        raise ValueError("a mesh with a %r axis of %d needs a process group "
+                         "of as many ranks (init_multi_host)"
+                         % (data_axis, len(rows)))
+    row = rows[0 if reduce is None else reduce.rank]
+    width = row if len(row) > 1 else None
+    spec = dataclasses.replace(
+        spec, batch_axis=data_axis if reduce is not None else None,
+        width_axis=model_axis if width else None)
+    base = make_distill_round(spec, reduce=reduce, width_devices=width)
+
+    def round_fn(params, opt, frames_buf, labels_buf, n_valid, rng, lr,
+                 mask, reselect=True, **kw):
+        # JAX's _prepare: the state on the row's first device; the round
+        # splits the buffers over the row's columns
+        params, opt, mask = (_tree_map(lambda x: x.to(row[0]), t)
+                             for t in (params, opt, mask))
+        return base(params, opt, frames_buf, labels_buf, n_valid, rng, lr,
+                    mask, reselect=reselect, **kw)
+
+    return round_fn
 
 
 def _video_rounds(bases, devices, reselect, with_class_mask):
@@ -153,7 +201,8 @@ def make_multi_video_round(spec: DistillSpec, mesh: Mesh,
     a stacked tensor or a sequence (memories of different lengths);
     ``n_valid_V`` their live rows; ``gens_V`` one ``torch.Generator`` per
     video, on the device its block runs on.  Video j runs on device
-    j // (V / mesh size) of ``mesh.device_list()``.
+    j // (V / mesh size) of ``mesh.device_list()``, over both axes of the
+    mesh (JAX's ``P(axes)``).
 
     ``reselect`` (coord_desc_auto; None means ``spec.strategy ==
     "coord_desc_auto"``): recompute each video's subset at iteration 0;
@@ -164,6 +213,8 @@ def make_multi_video_round(spec: DistillSpec, mesh: Mesh,
     ``class_mask_V`` (V, len(union)), so its loss is the one of a round
     over its own subset.
     """
+    from ams_tpu_torch.distill.train_step import make_distill_round
+
     # the parallelism is the V axis; a video's round runs on one device
     spec = dataclasses.replace(spec, batch_axis=None, width_axis=None)
     devices = mesh.device_list()
@@ -185,6 +236,8 @@ def make_vmapped_multi_video_round(spec: DistillSpec, reselect: bool = None,
     this computes.  A batched-weights version (grouped convolutions) is
     not ported (ROADMAP C).
     """
+    from ams_tpu_torch.distill.train_step import make_distill_round
+
     if reselect is None:
         reselect = spec.strategy == "coord_desc_auto"
     return _video_rounds([make_distill_round(spec)], [None], reselect,
@@ -196,34 +249,43 @@ def make_sharded_labeler(mesh: Mesh, teacher_params,
                          model_axis: str = "model",
                          compute_dtype=torch.bfloat16):
     """Teacher labeling with the frame batch split in contiguous chunks
-    over the mesh's devices: label(frames (N, H, W, 3)) -> (N, H, W) int32
-    ``teacher_predictions`` (the full-resolution argmax, as JAX's route
-    through ``teacher_outputs(...)["predictions"]``), concatenated on the
-    mesh's first device.  N must divide over the devices."""
+    over the mesh's ``data`` axis and each chunk's width over the devices
+    of its row (the ``model`` axis): label(frames (N, H, W, 3)) -> (N, H,
+    W) int32 ``teacher_predictions`` (the full-resolution argmax of the
+    gathered logits, as JAX's route through
+    ``teacher_outputs(...)["predictions"]``), concatenated on the mesh's
+    first device.  N must divide over the rows.  The teacher goes to each
+    row's first device once; a row's other devices take each weight from
+    there at every call."""
+    from ams_tpu_torch.models.layers import as_dtype
     from ams_tpu_torch.models.xception_deeplab import teacher_predictions
 
-    devices = mesh.device_list()
+    rows = mesh.rows(data_axis)
     cd = as_dtype(compute_dtype)
     # the teacher goes to each device ONCE, not on every labeling call
     replicas = {}
-    for d in devices:
-        if d not in replicas:
-            replicas[d] = {k: v.to(d) for k, v in teacher_params.items()}
+    for row in rows:
+        if row[0] not in replicas:
+            replicas[row[0]] = {k: v.to(row[0])
+                                for k, v in teacher_params.items()}
 
     def label(frames):
         frames = torch.as_tensor(frames)
-        if frames.shape[0] % len(devices):
+        if frames.shape[0] % len(rows):
             raise ValueError("a batch of %d frames does not divide over %d "
-                             "devices" % (frames.shape[0], len(devices)))
-        chunks = frames.chunk(len(devices))
+                             "mesh rows" % (frames.shape[0], len(rows)))
+        chunks = frames.chunk(len(rows))
 
         def one(i):
-            dev = devices[i]
-            with _device_context(dev), torch.inference_mode():
-                return teacher_predictions(replicas[dev], chunks[i].to(dev),
+            row = rows[i]
+            x = chunks[i].to(row[0])
+            if len(row) > 1:
+                x = spatial.shard_width(x, row, dim=2)
+            with _device_context(row[0]), torch.inference_mode():
+                return teacher_predictions(replicas[row[0]], x,
                                            compute_dtype=cd)
 
-        return torch.cat([p.to(devices[0])
-                          for p in _per_device(devices, one)])
+        home = rows[0][0]
+        return torch.cat([p.to(home) for p in _per_device(rows, one)])
 
     return label

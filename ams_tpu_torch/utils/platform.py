@@ -5,7 +5,14 @@ card is an error, never a quiet fall to the CPU.  Selecting a CUDA device
 also turns TF32 off for matmuls and cuDNN convolutions: the port computes
 in float32 throughout, matching the JAX package's f32/``HIGHEST`` contract.
 ``conv_precision("default")`` turns it on for the span of a distillation
-round, the JAX package's single-pass ``lax.Precision.DEFAULT``.
+round, the JAX package's single-pass ``lax.Precision.DEFAULT``; while such
+a span is open, selecting a device on another thread leaves it on.
+
+Selecting a CUDA device also turns cuDNN's deterministic mode on: with its
+default algorithms, two runs of the same round differ in their last bits
+(tools/torch_round_determinism.py).  The other source of that, the
+atomics of ``index_select``'s backward, has a deterministic formulation in
+``models/resize.py``.  ``torch.use_deterministic_algorithms`` stays off.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             raise RuntimeError(
                 "no CUDA device: the port runs on the GPU unless the caller "
                 "passes device='cpu'")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        _TF32.turn_off()
+        torch.backends.cudnn.deterministic = True
     elif dev.type != "cpu":
         raise ValueError("unsupported device %s (cuda or cpu)" % dev)
     return dev
@@ -42,12 +49,21 @@ class _TF32Span:
     turns TF32 on, the last one out restores them.  The count keeps TF32
     on until the last "default" round exits; any f32 work on another
     thread in that time (a "highest" round, a labeler, a client) runs in
-    TF32 too (ROADMAP §C)."""
+    TF32 too (ROADMAP §C).  ``resolve_device`` turns TF32 off through
+    ``turn_off``, which leaves an open span's flags alone."""
 
     def __init__(self):
         self.lock = threading.Lock()
         self.users = 0
         self.saved = None
+
+    def turn_off(self) -> None:
+        """Both flags off, unless a span is open: then its round keeps
+        TF32, and the last one out restores what it saved."""
+        with self.lock:
+            if self.users == 0:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
 
     def enter(self) -> None:
         with self.lock:

@@ -87,10 +87,9 @@ the paths on the card:
    labelled by make_sharded_labeler over a one-card mesh with phase 7's
    teacher (ids equal to teacher_predictions, no kernel); video 0 of a
    6-iteration multi-video round against a single-video round from the
-   same state, generator and class mask, equal to the bit under
-   deterministic algorithms; 200 iterations, then 20 with keep_mask
-   (finite losses, distinct videos, delta shares within 5-15%, masks
-   kept), one video's 200-iteration round alone, the device's busy share
+   same state, generator and class mask, equal to the bit; 200
+   iterations, then 20 with keep_mask (finite losses, distinct videos,
+   delta shares within 5-15%, masks kept), one video's 200-iteration round alone, the device's busy share
    over the keep_mask round, a bitwise save_state/load_state, and video
    0's deployed artifact on the f32 client with every counter set to 0
    just before it (K1 once per frame, nothing else); (b) the minibatch-
@@ -101,7 +100,8 @@ the paths on the card:
    tests/test_sharded_round.py (loss, selection masks; for full_model the
    BN moving statistics and the weights), every counter set to 0 just
    before each round in each rank (K2 once per iteration per rank with
-   the fused loss, no other launch), the one rank equal to the bit;
+   the fused loss, no other launch), the one rank equal to the bit; no
+   phase turns deterministic algorithms on;
 10. the rest of the port, every launch counter set to 0 just before each
    part: (a) the committed TF1 student checkpoint read without TensorFlow
    (equal to its tool's seeded arrays, the Adam slot and global_step
@@ -133,7 +133,25 @@ the paths on the card:
    create_teacher's predictions against teacher_predictions at 2x257x513,
    frames/s of each; (f) the space-to-depth stem against the stride-2
    SAME convolution at 8x513x1025x3 in f32, both times;
-11. one JSON line of kernel numbers, the wall-clock, and as the last line
+11. width partitioning (the mesh's model axis), every shard on the card:
+   (a) in phase 9 part B's call, two more gloo ranks (this script with
+   --dp-rank and --dp-model 2), each splitting its width over a 2-shard
+   row of the card (mesh data 2 x model 2), through every case of
+   DP_CASES against the same single-device round and at the same gates,
+   the ranks equal to the bit, K2 loss+grad counted once per iteration
+   per rank with the fused loss (the gathered grid) and nothing else;
+   then on one rank, 20 iterations of phase 4's round partitioned against
+   unpartitioned, in turns, and the largest shard of a rank's train-mode
+   forward; (b) make_sharded_labeler over Mesh([[cuda:0, cuda:0]]) on
+   phase 7's teacher at 4x257x513, its f32 ids against
+   teacher_predictions (0.999, equal off near ties: margins within twice
+   the partitioned logits' largest gap), and its bf16 ids' agreement;
+   (c) the repaired faults: the round in bf16,
+   f32 and f32 with the fused loss, each run twice with deterministic
+   algorithms off and equal to the bit, and png_decode of a 512x1024
+   frame with every row Average and every row Paeth, equal to the
+   pixels cv2 decoded from the same construction (DECODE_PROBE), timed;
+12. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -2614,17 +2632,19 @@ DP_BN_KEYS = ("MobilenetV2/Conv/BatchNorm/moving_mean",
               "concat_projection/BatchNorm/moving_variance")
 DP_MEMORY = 16           # frames in its buffers
 DP_TIMEOUT_S = 300       # per rank process
-
-
-def deterministic(on):
-    """Turn PyTorch's (and cuDNN's) deterministic algorithms on or off.
-    The round is not deterministic on the card without them: two runs of
-    the same 6-iteration round from cold Adam slots flip a few selected
-    coordinates and then diverge (tools/torch_round_determinism.py)."""
-    import torch
-
-    torch.backends.cudnn.deterministic = on
-    torch.use_deterministic_algorithms(on, warn_only=True)
+# phase 11: width partitioning (the mesh's model axis), every shard on the
+# card; its ranks run with phase 9 part B's data, cases and reference
+WIDTH_MODEL = 2          # shards per mesh row
+WIDTH_TIME_ITERS = 20    # the partitioned round against the unpartitioned
+WIDTH_LABEL_B = 4        # the labeler's batch of 257x513 frames
+WIDTH_LABEL_AGREE = 0.999   # tests/test_sharded_labeler.py's bar
+WIDTH_LOGIT_RTOL = 1e-3  # f32 logits, partitioned against whole
+DETERMINISM_ITERS = 6    # each form of the round, run twice to the bit
+# SHA-256 of cv2.imdecode's pixels of png_filtered(decode_probe_frame(), k)
+# for k = 3 (Average) and 4 (Paeth), recorded from OpenCV by
+# tests/test_torch_repaired_faults.py: the frame itself
+DECODE_PROBE = ("018f67d035ef33ebde7983579a39de49"
+                "5b9cc51a4183a8b77ba3319ab1dccf7f")
 
 
 def video_slice(tree, j):
@@ -2643,7 +2663,8 @@ def tree_max_abs_diff(a, b):
 
 def phase_multi_video(dev, clip):
     """Phase 9, part A: the multi-video server on the card (see the module
-    docstring) -> its record."""
+    docstring) -> (its record, the calibrated teacher, the clip's frames
+    at SHxSW), the last two for phase 11."""
     import dataclasses
 
     import numpy as np
@@ -2690,7 +2711,7 @@ def phase_multi_video(dev, clip):
     check(not any(label_counts.values()),
           "the labeler launched kernels: %s" % label_counts)
     labels = ids.cpu().numpy().astype(np.uint8)
-    del teacher, staged, want
+    del staged, want
     log("  labeled %d frames of %dx%d in %.2f s over %s (bf16, %d classes "
         "present); ids equal to teacher_predictions; no kernel launched; "
         "clip, teacher and labels %.2f s"
@@ -2727,17 +2748,13 @@ def phase_multi_video(dev, clip):
                 for j in range(srv.V)]
 
     t0 = time.perf_counter()
-    deterministic(True)
-    try:
-        mv = make_multi_video_round(spec, srv.mesh, with_class_mask=True)(
-            srv.params_V, srv.opt_V, frames_V, labels_V, n_valid, gens(), LR,
-            srv.mask_V, srv.class_mask_V)
-        single = make_distill_round(spec)(
-            video_slice(srv.params_V, 0), video_slice(srv.opt_V, 0),
-            frames_V[0], labels_V[0], n_valid[0], gens()[0], LR,
-            video_slice(srv.mask_V, 0), class_mask=srv.class_mask_V[0])
-    finally:
-        deterministic(False)
+    mv = make_multi_video_round(spec, srv.mesh, with_class_mask=True)(
+        srv.params_V, srv.opt_V, frames_V, labels_V, n_valid, gens(), LR,
+        srv.mask_V, srv.class_mask_V)
+    single = make_distill_round(spec)(
+        video_slice(srv.params_V, 0), video_slice(srv.opt_V, 0),
+        frames_V[0], labels_V[0], n_valid[0], gens()[0], LR,
+        video_slice(srv.mask_V, 0), class_mask=srv.class_mask_V[0])
     check_s = time.perf_counter() - t0
     p_mv = {k: v[0] for k, v in mv[0].items()}
     bitwise = all(torch.equal(p_mv[k], single[0][k]) for k in p_mv) \
@@ -2746,7 +2763,7 @@ def phase_multi_video(dev, clip):
     param_diff = tree_max_abs_diff(p_mv, single[0])
     loss_diff = float((mv[3][0] - single[3]).abs().max())
     log("  video 0 of a %d-iteration multi-video round against a single-"
-        "video round (deterministic algorithms; both in %.2f s): bitwise %s; "
+        "video round (both in %.2f s): bitwise %s; "
         "max |d param| %.3g, max |d loss| %.3g"
         % (MV_CHECK_ITERS, check_s, bitwise, param_diff, loss_diff))
     check(bitwise or (loss_diff <= 1e-3 * float(single[3].abs().max())
@@ -2881,7 +2898,7 @@ def phase_multi_video(dev, clip):
            else "%.1f%%" % (100 * rec["busy_share"]),
            ["%.4f" % x for x in shares], save_s,
            client_counts["resize_argmax"], MV_CLIENT_FRAMES))
-    return rec
+    return rec, teacher, rgb
 
 
 def dp_spec(case, idx):
@@ -2932,7 +2949,10 @@ def dp_round(round_fn, data, dev, case):
 def dp_rank_main(argv):
     """A rank of phase 9, part B (``--dp-rank``): the minibatch-parallel
     round of every case of DP_CASES, each with every kernel's launch count
-    set to 0 just before it and read just after -> one .npz."""
+    set to 0 just before it and read just after -> one .npz.  With
+    ``--dp-model M`` above 1 (phase 11), rank r also partitions its width
+    over row r of a (world, M) mesh whose every entry is this rank's
+    device."""
     import argparse
 
     import numpy as np
@@ -2941,11 +2961,13 @@ def dp_rank_main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ams_tpu_torch.parallel import init_multi_host, \
         make_sharded_distill_round
+    from ams_tpu_torch.parallel.mesh import Mesh
     from ams_tpu_torch.utils.platform import resolve_device
 
     ap = argparse.ArgumentParser()
     for flag in ("--dp-rank", "--dp-world", "--dp-port"):
         ap.add_argument(flag, type=int, required=True)
+    ap.add_argument("--dp-model", type=int, default=1)
     for flag in ("--dp-device", "--dp-data", "--dp-out", "--dp-backend"):
         ap.add_argument(flag, required=True)
     a = ap.parse_args(argv)
@@ -2953,13 +2975,14 @@ def dp_rank_main(argv):
     world = init_multi_host("localhost:%d" % a.dp_port, a.dp_world,
                             a.dp_rank, backend=a.dp_backend)
     check(world == a.dp_world, "world size %d" % world)
+    mesh = Mesh([[dev] * a.dp_model] * world) if a.dp_model > 1 else None
     with np.load(a.dp_data) as z:
         data = {k: z[k] for k in z.files}
-    deterministic(True)
     res = {}
     try:
         for case in DP_CASES:
-            fn = make_sharded_distill_round(dp_spec(case, data["idx"]))
+            fn = make_sharded_distill_round(dp_spec(case, data["idx"]),
+                                            mesh)
             reset_counters()
             t0 = time.perf_counter()
             out = dp_round(fn, data, dev, case)
@@ -2976,8 +2999,10 @@ def dp_rank_main(argv):
 def phase_data_parallel(dev):
     """Phase 9, part B: the minibatch-parallel round on two gloo ranks that
     share the card, and one rank on the device's backend (NCCL on the card),
-    against the single-device round, for every case of DP_CASES -> its
-    record."""
+    against the single-device round, for every case of DP_CASES; and,
+    meanwhile, phase 11 (a): two more gloo ranks that also partition their
+    width over a 2-device row of the card -> its record, phase 11 (a)'s
+    under "width"."""
     import socket
 
     import numpy as np
@@ -3009,7 +3034,7 @@ def phase_data_parallel(dev):
         path = os.path.join(root, "data.npz")
         np.savez(path, **data)
 
-        def launch(name, world, backend):
+        def launch(name, world, backend, model=1):
             with socket.socket() as sk:
                 sk.bind(("localhost", 0))
                 port = sk.getsockname()[1]
@@ -3018,6 +3043,7 @@ def phase_data_parallel(dev):
             procs = [subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--dp-rank",
                  str(r), "--dp-world", str(world), "--dp-port", str(port),
+                 "--dp-model", str(model),
                  "--dp-device", str(dev), "--dp-data", path, "--dp-out",
                  outs[r], "--dp-backend", backend], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT) for r in range(world)]
@@ -3028,18 +3054,16 @@ def phase_data_parallel(dev):
         # one rank takes the device's own backend (NCCL on the card)
         runs = {"gloo": launch("gloo", DP_WORLD, "gloo"),
                 "one": launch("one", 1,
-                              "nccl" if dev.type == "cuda" else "gloo")}
-        # the single-device round on the card meanwhile
-        deterministic(True)
+                              "nccl" if dev.type == "cuda" else "gloo"),
+                "width": launch("width", DP_WORLD, "gloo", WIDTH_MODEL)}
+        # the single-device round on the card meanwhile, with
+        # deterministic algorithms off, as in the ranks
         ref, ref_s = {}, {}
-        try:
-            for case in DP_CASES:
-                t1 = time.perf_counter()
-                ref[case] = dp_round(make_distill_round(dp_spec(case, idx)),
-                                     data, dev, case)
-                ref_s[case] = time.perf_counter() - t1
-        finally:
-            deterministic(False)
+        for case in DP_CASES:
+            t1 = time.perf_counter()
+            ref[case] = dp_round(make_distill_round(dp_spec(case, idx)),
+                                 data, dev, case)
+            ref_s[case] = time.perf_counter() - t1
         results = {}
         try:
             for backend, (procs, outs) in runs.items():
@@ -3066,78 +3090,373 @@ def phase_data_parallel(dev):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    r0, r1 = results["gloo"]
-    check(set(r0) == set(r1) and all(np.array_equal(r0[k], r1[k])
-                                     for k in r0
-                                     if not k.endswith("/round_s")),
-          "the two gloo ranks' outputs differ")
-    rec = {"ranks_s": ranks_s, "world": DP_WORLD}
-    for case in DP_CASES:
-        spec = dp_spec(case, idx)
-        got, one = ({k.split("/", 1)[1]: v for k, v in r.items()
-                     if k.startswith(case + "/")}
-                    for r in (r0, results["one"][0]))
-        want = ref[case]
-        loss_rel = np.abs(got["losses"] - want["losses"]) \
-            / np.abs(want["losses"])
-        masks = [k for k in want if k.startswith("mask:")]
-        agree = sum(int((got[k] == want[k]).sum()) for k in masks) \
-            / sum(want[k].size for k in masks)
-        # BN moving statistics: the largest gap over every BN, in units of
-        # tests/test_sharded_round.py's tolerance (atol 1e-6 + rtol 1e-4)
-        stat_tol = max(float(np.max(np.abs(got[k] - want[k])
-                                    / (1e-6 + 1e-4 * np.abs(want[k]))))
-                       for k in want if "moving_" in k)
-        weight_diff = max(float(np.max(np.abs(got[k] - want[k])))
-                          for k in want if k.startswith("param:")
-                          and "moving_" not in k)
-        if spec.strategy == "full_model":
-            # tests/test_sharded_round.py:66-80: one iteration from zero
-            # slots; the weights within one Adam step of each other
-            check(loss_rel[0] <= 1e-5 and all(
-                np.allclose(got["param:" + k], want["param:" + k],
-                            rtol=1e-4, atol=1e-6) for k in DP_BN_KEYS)
-                  and weight_diff <= 2 * LR * 3.2 + 1e-6,
-                  "%s: two ranks against one device: loss rel %s, BN "
-                  "statistics %.3g of the tolerance, weights %.3g apart"
-                  % (case, loss_rel.tolist(), stat_tol, weight_diff))
-        else:
-            # tests/test_sharded_round.py:101-107
-            check(loss_rel[0] <= 1e-5 and loss_rel.max() <= 1e-3
-                  and agree > 0.999,
-                  "%s: two ranks against one device: loss rel %s, mask "
-                  "agreement %.6f" % (case, loss_rel.tolist(), agree))
-        counts = {k[len("launches:"):]: int(v) for k, v in got.items()
-                  if k.startswith("launches:")}
-        k2 = spec.iters if spec.fused_loss else 0
-        check(counts == dict(dict.fromkeys(counts, 0),
-                             resize_ce_loss_grad=k2),
-              "%s: a rank launched %s (K2 loss+grad expected %d times, no "
-              "other kernel)" % (case, counts, k2))
-        nccl_bitwise = all(np.array_equal(one[k], want[k]) for k in want)
-        check(nccl_bitwise, "%s: the one rank is not the single-device round "
-              "to the bit" % case)
-        rec_case = rec[case] = {
-            "iters": spec.iters, "loss_rel": loss_rel.tolist(),
+    rec = {"ranks_s": ranks_s, "world": DP_WORLD, "width": {}}
+    for group in ("gloo", "width"):
+        r0, r1 = results[group]
+        check(set(r0) == set(r1) and all(np.array_equal(r0[k], r1[k])
+                                         for k in r0
+                                         if not k.endswith("/round_s")),
+              "the two %s ranks' outputs differ" % group)
+        for case in DP_CASES:
+            got = {k.split("/", 1)[1]: v for k, v in r0.items()
+                   if k.startswith(case + "/")}
+            gates = dp_case_gates(case, idx, got, ref[case],
+                                  "%d %s ranks" % (DP_WORLD, group))
+            gates.update({"round_s_per_rank": [float(r[case + "/round_s"])
+                                               for r in (r0, r1)],
+                          "single_device_round_s": ref_s[case]})
+            if group == "width":
+                rec["width"][case] = gates
+                log("  phase 11 (a), %s (%d iterations): %d gloo ranks, "
+                    "each over a %d-shard row of the card (mesh data %d x "
+                    "model %d), against the single-device round: loss rel "
+                    "%s, masks agree %.6f, BN moving statistics at most "
+                    "%.3g of tests/test_sharded_round.py's tolerance, "
+                    "weights within %.3g; ranks equal to the bit; per rank "
+                    "%s; the round %s s on the ranks, %.2f s on the device "
+                    "alone" % (case, gates["iters"], DP_WORLD, WIDTH_MODEL,
+                               DP_WORLD, WIDTH_MODEL,
+                               ["%.2g" % x for x in gates["loss_rel"]],
+                               gates["mask_agreement"],
+                               gates["bn_stat_gap_in_tolerances"],
+                               gates["weight_max_abs_diff"],
+                               gates["launches_per_rank"],
+                               ["%.2f" % x
+                                for x in gates["round_s_per_rank"]],
+                               ref_s[case]))
+                continue
+            one = {k.split("/", 1)[1]: v for k, v in
+                   results["one"][0].items() if k.startswith(case + "/")}
+            nccl_bitwise = all(np.array_equal(one[k], ref[case][k])
+                               for k in ref[case])
+            check(nccl_bitwise, "%s: the one rank is not the single-device "
+                  "round to the bit" % case)
+            gates.update({"one_rank_bitwise": nccl_bitwise,
+                          "one_rank_round_s": float(one["round_s"])})
+            rec[case] = gates
+            log("  %s (%d iterations): %d ranks (gloo, one card) against the "
+                "single-device round: loss rel %s, masks agree %.6f, BN "
+                "moving statistics at most %.3g of tests/test_sharded_"
+                "round.py's tolerance, weights within %.3g; ranks equal to "
+                "the bit; per rank %s; one rank (the device's backend) equal "
+                "to the single-device round to the bit: %s; the round %s s "
+                "on the ranks, %.2f s on one rank, %.2f s on the device "
+                "alone (the first call of each process includes its "
+                "warm-up)"
+                % (case, gates["iters"], DP_WORLD,
+                   ["%.2g" % x for x in gates["loss_rel"]],
+                   gates["mask_agreement"],
+                   gates["bn_stat_gap_in_tolerances"],
+                   gates["weight_max_abs_diff"], gates["launches_per_rank"],
+                   nccl_bitwise,
+                   ["%.2f" % x for x in gates["round_s_per_rank"]],
+                   gates["one_rank_round_s"], ref_s[case]))
+    return rec
+
+
+def dp_case_gates(case, idx, got, want, who):
+    """tests/test_sharded_round.py's gates of one case of DP_CASES, a
+    rank's results ``got`` against the single-device round's ``want``, and
+    the rank's launch counts (K2 loss+grad once per iteration with the
+    fused loss, no other kernel) -> the measures."""
+    import numpy as np
+
+    spec = dp_spec(case, idx)
+    loss_rel = np.abs(got["losses"] - want["losses"]) / np.abs(
+        want["losses"])
+    masks = [k for k in want if k.startswith("mask:")]
+    agree = sum(int((got[k] == want[k]).sum()) for k in masks) \
+        / sum(want[k].size for k in masks)
+    # BN moving statistics: the largest gap over every BN, in units of
+    # tests/test_sharded_round.py's tolerance (atol 1e-6 + rtol 1e-4)
+    stat_tol = max(float(np.max(np.abs(got[k] - want[k])
+                                / (1e-6 + 1e-4 * np.abs(want[k]))))
+                   for k in want if "moving_" in k)
+    weight_diff = max(float(np.max(np.abs(got[k] - want[k])))
+                      for k in want if k.startswith("param:")
+                      and "moving_" not in k)
+    if spec.strategy == "full_model":
+        # tests/test_sharded_round.py:66-80: one iteration from zero
+        # slots; the weights within one Adam step of each other
+        check(loss_rel[0] <= 1e-5 and all(
+            np.allclose(got["param:" + k], want["param:" + k],
+                        rtol=1e-4, atol=1e-6) for k in DP_BN_KEYS)
+              and weight_diff <= 2 * LR * 3.2 + 1e-6,
+              "%s: %s against one device: loss rel %s, BN statistics %.3g "
+              "of the tolerance, weights %.3g apart"
+              % (case, who, loss_rel.tolist(), stat_tol, weight_diff))
+    else:
+        # tests/test_sharded_round.py:101-107
+        check(loss_rel[0] <= 1e-5 and loss_rel.max() <= 1e-3
+              and agree > 0.999,
+              "%s: %s against one device: loss rel %s, mask agreement %.6f"
+              % (case, who, loss_rel.tolist(), agree))
+    counts = {k[len("launches:"):]: int(v) for k, v in got.items()
+              if k.startswith("launches:")}
+    k2 = spec.iters if spec.fused_loss else 0
+    check(counts == dict(dict.fromkeys(counts, 0), resize_ce_loss_grad=k2),
+          "%s: %s: a rank launched %s (K2 loss+grad expected %d times, no "
+          "other kernel)" % (case, who, counts, k2))
+    return {"iters": spec.iters, "loss_rel": loss_rel.tolist(),
             "mask_agreement": agree, "bn_stat_gap_in_tolerances": stat_tol,
-            "weight_max_abs_diff": weight_diff, "launches_per_rank": counts,
-            "one_rank_bitwise": nccl_bitwise,
-            "round_s_per_rank": [float(r[case + "/round_s"])
-                                 for r in (r0, r1)],
-            "single_device_round_s": ref_s[case],
-            "one_rank_round_s": float(one["round_s"])}
-        log("  %s (%d iterations): %d ranks (gloo, one card) against the "
-            "single-device round: loss rel %s, masks agree %.6f, BN moving "
-            "statistics at most %.3g of tests/test_sharded_round.py's "
-            "tolerance, weights within %.3g; ranks equal to the bit; per "
-            "rank %s; one rank (the device's backend) equal to the single-"
-            "device round to the bit: %s; the round %s s on the ranks, %.2f "
-            "s on one rank, %.2f s on the device alone (the first call of "
-            "each process includes its warm-up)"
-            % (case, spec.iters, DP_WORLD, ["%.2g" % x for x in loss_rel],
-               agree, stat_tol, weight_diff, counts, nccl_bitwise,
-               ["%.2f" % x for x in rec_case["round_s_per_rank"]],
-               rec_case["one_rank_round_s"], ref_s[case]))
+            "weight_max_abs_diff": weight_diff, "launches_per_rank": counts}
+
+
+def decode_probe_frame(seed=SEED):
+    """A fixed 512x1024 BGR frame from integer arithmetic and the legacy
+    RandomState stream only: smooth ramps, which the Average and Paeth
+    predictors fit, and a band of noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:512, 0:1024]
+    frame = np.stack([(xx // 4 + yy // 8) % 256, (xx * yy // 512) % 256,
+                      (yy // 2 + xx // 7) % 256], -1).astype(np.uint8)
+    frame[200:260] = np.random.RandomState(seed).randint(
+        0, 256, (60, 1024, 3))
+    return frame
+
+
+def png_filtered(img, kind):
+    """A PNG of an (H, W, 3) BGR frame with every row filtered by ``kind``
+    (3: Average, 4: Paeth), deflated by zlib at level 6: the rows that
+    cv2's writer never makes and other writers do."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    raw = np.ascontiguousarray(img[..., ::-1]).reshape(h, w * c).astype(
+        np.int32)
+    left, up, upleft = (np.zeros_like(raw) for _ in range(3))
+    left[:, c:], up[1:], upleft[1:, c:] = raw[:, :-c], raw[:-1], \
+        raw[:-1, :-c]
+    if kind == 3:
+        pred = (left + up) >> 1
+    else:
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left,
+                        np.where(pb <= pc, up, upleft))
+    rows = np.empty((h, w * c + 1), np.uint8)
+    rows[:, 0] = kind
+    rows[:, 1:] = (raw - pred) & 0xFF
+
+    def chunk(kind_, body):
+        return (struct.pack(">I", len(body)) + kind_ + body
+                + struct.pack(">I", zlib.crc32(kind_ + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def phase_width(dev, teacher, rgb, ranks):
+    """Phase 11, width partitioning on the card (``ranks``: part (a)'s
+    two gloo ranks, from ``phase_data_parallel``): the partitioned round's
+    time against the unpartitioned one's and its largest shard; (b) the
+    labeler over a one-row mesh with a model axis; (c) the repaired
+    faults: the round rerun to the bit with deterministic algorithms off,
+    and the native PNG decode of Average and Paeth rows -> its record."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+    from ams_tpu_torch.data import image
+    from ams_tpu_torch.distill.optimizer import adam_init
+    from ams_tpu_torch.distill.train_step import all_true_mask, \
+        make_distill_round, split_params
+    from ams_tpu_torch.models import mobilenetv2_deeplab as sm
+    from ams_tpu_torch.models import xception_deeplab as xd
+    from ams_tpu_torch.native import png as native_png
+    from ams_tpu_torch.parallel import make_sharded_distill_round, \
+        make_sharded_labeler, spatial
+    from ams_tpu_torch.parallel.mesh import Mesh
+
+    rec = {"ranks": ranks}
+    mesh = Mesh([[dev] * WIDTH_MODEL])
+    frames = synthetic_frames(DP_MEMORY, SH, SW, SEED + 20)
+    labels = np.minimum(frames[..., 0] // 14, 18).astype(np.uint8)
+    frames_d = torch.from_numpy(frames).to(dev)
+    labels_d = torch.from_numpy(labels).to(dev)
+    idx = np.random.RandomState(SEED + 2).randint(
+        0, DP_MEMORY, (WIDTH_TIME_ITERS, MINI_BATCH))
+    params = sm.init_student_params(SEED, device=dev)
+
+    def run(round_fn, spec):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = round_fn(params, adam_init(split_params(params)[0]), frames_d,
+                       labels_d, DP_MEMORY, None, LR, all_true_mask(params),
+                       idx_seq=idx[:spec.iters])
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / spec.iters, out, \
+            launch_counts()
+
+    # the partitioned round against the unpartitioned one on one rank:
+    # phase 4's round (coord_desc_auto, fused loss, f32), in turns
+    spec = dp_spec("fused", idx)
+    rounds = {"unpartitioned": make_distill_round,
+              "partitioned": lambda sp: make_sharded_distill_round(sp, mesh)}
+    for name, make in rounds.items():
+        run(make(dataclasses.replace(spec, iters=2)),
+            dataclasses.replace(spec, iters=2))              # warm-up
+    times = {name: [] for name in rounds}
+    outs = {}
+    for name in ("unpartitioned", "partitioned", "partitioned",
+                 "unpartitioned"):
+        ms, outs[name], counts = run(rounds[name](spec), spec)
+        times[name].append(ms)
+        check(counts == dict(dict.fromkeys(counts, 0),
+                             resize_ce_loss_grad=spec.iters),
+              "%s round launched %s" % (name, counts))
+    lu, lp = (outs[n][3].cpu().numpy() for n in ("unpartitioned",
+                                                 "partitioned"))
+    loss_rel = np.abs(lp - lu) / np.abs(lu)
+    check(loss_rel[0] <= 1e-5 and np.isfinite(lp).all(),
+          "the partitioned round's first loss %s against %s" % (lp[0],
+                                                                lu[0]))
+    rec.update({"time_iters": spec.iters, "ms_per_iteration": times,
+                "time_loss_rel_first": float(loss_rel[0]),
+                "time_loss_rel_max": float(loss_rel.max())})
+
+    # the largest activation of one rank's share of the minibatch (5
+    # frames) in a train-mode forward, whole and its largest shard
+    conv_columns = spatial.conv_columns
+    largest = [0, 0]
+
+    def recording(*a, **kw):
+        out = conv_columns(*a, **kw)
+        sizes = [p.numel() * p.element_size() for p in out.parts]
+        if sum(sizes) > largest[0]:
+            largest[:] = [sum(sizes), max(sizes)]
+        return out
+
+    spatial.conv_columns = recording
+    try:
+        with torch.no_grad():
+            share = spatial.shard_width(
+                frames_d[:MINI_BATCH // DP_WORLD].float(), mesh.rows()[0],
+                dim=2)
+            sm.grid_logits_nchw(params, share, train=True)
+    finally:
+        spatial.conv_columns = conv_columns
+    rec.update({"largest_activation_bytes": largest[0],
+                "largest_shard_bytes": largest[1]})
+    log("  one rank, %d iterations of phase 4's round (coord_desc_auto, "
+        "fused loss, f32) at %dx%d, minibatch %d: partitioned over %d "
+        "shards of the card %s ms per iteration, unpartitioned %s (in "
+        "turns); first loss rel %.2g; K2 loss+grad once per iteration in "
+        "both; largest activation of a rank's %d frames %d B, its largest "
+        "shard %d B"
+        % (spec.iters, SH, SW, MINI_BATCH, WIDTH_MODEL,
+           ["%.2f" % t for t in times["partitioned"]],
+           ["%.2f" % t for t in times["unpartitioned"]], loss_rel[0],
+           MINI_BATCH // DP_WORLD, largest[0], largest[1]))
+
+    # (b) the labeler over a one-row mesh with a model axis, phase 7's
+    # teacher at 257x513: in f32 (TF32 off), where the shards change only
+    # the order of f32 sums, gated; in bf16, whose every rounding the
+    # windows' other convolution shapes may move, recorded.  A pixel is a
+    # near tie where its top-2 margin is within twice the largest gap
+    # between the partitioned and the whole forward's logits: rounding
+    # decides its order
+    padded = np.pad(rgb[:WIDTH_LABEL_B], ((0, 0), (1, 0), (1, 0), (0, 0)),
+                    mode="symmetric")
+    staged = torch.from_numpy(padded).to(dev)
+    labeled = {}
+    for name, cd in (("float32", torch.float32),
+                     ("bfloat16", torch.bfloat16)):
+        label = make_sharded_labeler(mesh, teacher, compute_dtype=cd)
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = label(staged)
+        torch.cuda.synchronize()
+        label_s = time.perf_counter() - t0
+        counts = launch_counts()
+        with torch.inference_mode():
+            logits = xd.teacher_logits_nchw(teacher, staged,
+                                            compute_dtype=cd)
+            parts = xd.teacher_logits_nchw(
+                teacher, spatial.shard_width(staged, mesh.rows()[0], dim=2),
+                compute_dtype=cd)
+            gap = float((parts - logits).abs().max())
+            scale = float(logits.abs().max())
+            want = torch.argmax(logits, dim=1).to(torch.int32)
+            top2 = torch.topk(logits, 2, dim=1).values
+            off_ties = (top2[:, 0] - top2[:, 1]) > 2 * gap
+        del logits, parts, top2
+        check(not any(counts.values()), "the labeler launched %s" % counts)
+        labeled[name] = {
+            "agreement": float((ids == want).float().mean()),
+            "logit_gap": gap, "logit_scale": scale,
+            "near_tie_share": 1.0 - float(off_ties.float().mean()),
+            "equal_off_ties": bool(torch.equal(ids[off_ties],
+                                               want[off_ties])),
+            "s": label_s}
+    f32 = labeled["float32"]
+    check(f32["agreement"] >= WIDTH_LABEL_AGREE and f32["equal_off_ties"]
+          and f32["logit_gap"] <= WIDTH_LOGIT_RTOL * f32["logit_scale"],
+          "the f32 labeler over %s: %s" % (mesh, f32))
+    rec["labeler"] = labeled
+    log("  (b) make_sharded_labeler over %s, %d frames of %dx%d, against "
+        "teacher_predictions: %s; no kernel launched"
+        % (mesh, WIDTH_LABEL_B, padded.shape[1], padded.shape[2],
+           "; ".join("%s ids agree on %.6f, equal off near ties %s (logits "
+                     "%.3g apart at a scale of %.3g, near ties %.2g of the "
+                     "pixels), %.2f s" % (n, r["agreement"],
+                                          r["equal_off_ties"],
+                                          r["logit_gap"], r["logit_scale"],
+                                          r["near_tie_share"], r["s"])
+                     for n, r in labeled.items())))
+
+    # (c) the round rerun to the bit with deterministic algorithms off
+    check(not torch.are_deterministic_algorithms_enabled()
+          and torch.backends.cudnn.deterministic,
+          "deterministic algorithms on, or cuDNN's deterministic mode off")
+    reruns = {}
+    for form, kw in (("bf16", dict(compute_dtype="bfloat16",
+                                   fused_loss=False)),
+                     ("f32 gather", dict(fused_loss=False)),
+                     ("f32 fused", dict(fused_loss=True))):
+        sp = dataclasses.replace(spec, iters=DETERMINISM_ITERS, **kw)
+        a, b = (run(make_distill_round(sp), sp)[1] for _ in range(2))
+        same = all(torch.equal(a[0][k], b[0][k]) for k in a[0]) \
+            and torch.equal(a[3], b[3]) \
+            and all(torch.equal(a[2][k], b[2][k]) for k in a[2])
+        reruns[form] = same
+    check(all(reruns.values()), "reruns of the round differ: %s" % reruns)
+    rec["bitwise_reruns"] = reruns
+
+    # (c) the native PNG decode of Average and Paeth rows
+    src = decode_probe_frame()
+    check(hashlib.sha256(src.tobytes()).hexdigest() == DECODE_PROBE,
+          "decode_probe_frame is not the frame cv2 decoded")
+    decode = {}
+    for name, kind in (("average", 3), ("paeth", 4)):
+        blob = png_filtered(src, kind)
+        calls = native_png.unfilter.calls
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = image.png_decode(blob)
+            best = min(best, time.perf_counter() - t0)
+        check(native_png.unfilter.calls == calls + 3
+              and np.array_equal(got, src),
+              "png_decode of %s rows" % name)
+        decode[name] = {"bytes": len(blob), "decode_s": best}
+    rec["png_decode"] = decode
+    log("  (c) %d iterations of the round in bf16, f32 (gather loss) and "
+        "f32 (fused loss), each run twice with deterministic algorithms "
+        "off: equal to the bit %s; png_decode of a 512x1024 frame, every "
+        "row Average: %.4f s, Paeth: %.4f s (native unfilter, equal to "
+        "cv2's pixels)"
+        % (DETERMINISM_ITERS, reruns, decode["average"]["decode_s"],
+           decode["paeth"]["decode_s"]))
     return rec
 
 
@@ -3680,9 +3999,6 @@ def phase_rest(dev, codec_build):
 
 
 def main() -> int:
-    # the H100's default cuBLAS workspace (32 MiB), named before the first
-    # cuBLAS call so that phase 9 may turn deterministic algorithms on
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if "--dp-rank" in sys.argv:
         return dp_rank_main(sys.argv[1:])
     t_start = time.perf_counter()
@@ -3767,7 +4083,7 @@ def main() -> int:
             "NCCL rank, %d iterations)" % (len(MV_VIDEOS), SH, MINI_BATCH,
                                            MV_ITERS, MV_KEEP_ITERS,
                                            DP_WORLD, DP_ITERS))
-        multi_video = phase_multi_video(dev, clip)
+        multi_video, teacher, clip_rgb = phase_multi_video(dev, clip)
     finally:
         shutil.rmtree(clip_root, ignore_errors=True)
     data_parallel = phase_data_parallel(dev)
@@ -3776,6 +4092,13 @@ def main() -> int:
         "TF32 round (%d iterations), the legacy builders and the s2d stem"
         % ROUND_ITERS)
     rest = phase_rest(dev, codec_build)
+
+    log("phase 11: width partitioning (the mesh's model axis, %d shards of "
+        "the card per row): (a) the round on %d gloo ranks (in phase 9 part "
+        "B's call), and on one rank against the unpartitioned round; (b) the "
+        "labeler; (c) the repaired faults" % (WIDTH_MODEL, DP_WORLD))
+    width = phase_width(dev, teacher, clip_rgb, data_parallel.pop("width"))
+    del teacher, clip_rgb
 
     main_case = cases[0]
     kernels = [{
@@ -3816,6 +4139,9 @@ def main() -> int:
             "data_parallel_launches_per_rank": {
                 case: r["launches_per_rank"]["resize_ce_" + part]
                 for case, r in data_parallel.items() if case in DP_CASES},
+            "width_parallel_launches_per_rank": {
+                case: r["launches_per_rank"]["resize_ce_" + part]
+                for case, r in width["ranks"].items()},
             **({"tf32_round_launches": rest["tf32_round"]["launches"]}
                if part == "loss_grad" else {}),
             "max_abs_err": max(c[key] for c in ce_cases),
@@ -3952,6 +4278,7 @@ def main() -> int:
            rest["tf32_round"]["ms_per_iteration"]["default"],
            *rest["tf32_round"]["ms_per_iteration"]["highest"]))
     log("the rest of the port: %s" % json.dumps(rest))
+    log("width partitioning: %s" % json.dumps(width))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

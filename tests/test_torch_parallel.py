@@ -5,8 +5,9 @@ and tests/test_sharded_labeler.py, plus the multi-video round against
 JAX's.  The port's mesh on this host is a grid of CPU entries
 (``make_mesh(n, device="cpu")``), which the multi-video round and the
 labeler split their work over, one host thread per entry.  JAX's tests
-use ``model_parallelism=2``; the port refuses width partitioning
-(ROADMAP A6), so its counterparts use 1.
+use ``model_parallelism=2``; these use 1, and
+tests/test_torch_parallel_width.py holds the width-partitioned labeler
+and round against JAX's ``model_parallelism=2``.
 
 Gates:
 - the multi-video round is V independent single-video port rounds to the
@@ -92,10 +93,16 @@ def test_make_mesh_rejects_overrequest(monkeypatch):
 
 
 def test_make_mesh_refuses_width_partitioning_and_needs_a_card():
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmesh.make_mesh(2, model_parallelism=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tmesh.Mesh([[torch.device("cpu")] * 2])
+    """A model axis that does not divide the devices raises ValueError
+    (JAX asserts); one that does gives rows of that many devices."""
+    with pytest.raises(ValueError, match="divide"):
+        tmesh.make_mesh(3, model_parallelism=2, device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        tmesh.make_mesh(2, model_parallelism=0, device="cpu")
+    mesh = tmesh.make_mesh(4, model_parallelism=2, device="cpu")
+    assert mesh.shape == {"data": 2, "model": 2} and mesh.size == 4
+    assert tmesh.Mesh([[torch.device("cpu")] * 2]).shape == {"data": 1,
+                                                            "model": 2}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tmesh.make_mesh()

@@ -202,11 +202,12 @@ def test_round_validates_its_inputs(setup):
         tround(*args, idx_seq=setup["idx"][:1])
     with pytest.raises(ValueError):
         tround(*args, idx_seq=setup["idx"][:, :2])
-    # conv_precision="default" is ported; width partitioning is not, and
-    # an unknown precision raises (JAX's precision property: KeyError)
+    # width partitioning needs a mesh with a model axis
+    # (parallel.make_sharded_distill_round), and an unknown precision
+    # raises (JAX's precision property: KeyError)
     for bad, err in (({"compute_dtype": "bfloat16", "width_axis": "model"},
-                      NotImplementedError),
-                     ({"width_axis": "model"}, NotImplementedError),
+                      ValueError),
+                     ({"width_axis": "model"}, ValueError),
                      ({"conv_precision": "single"}, ValueError)):
         with pytest.raises(err):
             tts.make_distill_round(tts.DistillSpec(**_spec("full_model"),
