@@ -2,11 +2,14 @@
 """Convert checkpoints between formats, flag-compatible with
 ``ams_tpu/cli/convert.py`` (``ams-convert``).
 
-The port loads .npy/.npz dicts and TF checkpoint prefixes directly
-(``utils.checkpoint.load_any``), so conversion is never required; this
-tool writes standalone artifacts: a portable .npz of a TF1 checkpoint
-(``model.index`` + ``model.data-*``, read without TensorFlow), or the
-BN-folded deployment dict (``models.frozen.fold_student``).  Flags are
+The port loads .npy/.npz dicts, TF checkpoint prefixes and Orbax
+directories directly (``utils.checkpoint.load_any``), so conversion is
+never required; this tool writes standalone artifacts: a portable .npz of
+a TF1 checkpoint (``model.index`` + ``model.data-*``, read without
+TensorFlow), an Orbax directory (the default for a destination that ends
+in neither .npz nor .npy, as JAX's; written without orbax, in the
+per-array zarr layout that orbax reads), or the BN-folded deployment dict
+(``models.frozen.fold_student``).  Flags are
 JAX's, plus ``--device``: with ``--fold`` the loaded dict goes to the
 GPU (the default) and ``fold_student`` returns the deployment dict there,
 as JAX's lands on its default device (the fold's arithmetic is numpy on
@@ -17,8 +20,7 @@ Examples:
     python -m ams_tpu_torch.cli.convert ckpts/model out/deploy.npz --fold
     python -m ams_tpu_torch.cli.convert run.npy out/student --format npy \
         --device cpu
-
-``--format orbax`` raises: the port has no orbax.
+    python -m ams_tpu_torch.cli.convert ckpts/model out/orbax_dir
 """
 
 import argparse
@@ -49,11 +51,6 @@ def main(argv=None):
     if fmt is None:
         fmt = "npy" if a.dst.endswith(".npy") else (
             "npz" if a.dst.endswith(".npz") else "orbax")
-    if fmt == "orbax":
-        raise NotImplementedError(
-            "--format orbax needs the orbax package, which the port does "
-            "not use; write .npz or .npy")
-
     device = resolve_device(a.device)
     params = ckpt.load_any(a.src)
     print("loaded %d variables from %s" % (len(params), a.src))
@@ -66,7 +63,9 @@ def main(argv=None):
         print("folded -> %d deployment variables" % len(params))
 
     dst = a.dst
-    if fmt == "npy":
+    if fmt == "orbax":
+        ckpt.save_orbax(dst, params)
+    elif fmt == "npy":
         if not dst.endswith(".npy"):
             dst += ".npy"
         ckpt.save_params(dst, params)

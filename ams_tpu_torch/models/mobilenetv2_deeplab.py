@@ -35,6 +35,7 @@ training preprocesses in f32.  The JAX package defaults these functions'
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
 
@@ -77,8 +78,19 @@ STEM_CHANNELS = 32
 HEAD_BN_EPS = 1.001e-5
 
 
+@dataclasses.dataclass(frozen=True)
+class StudentConfig:
+    num_classes: int = 19
+    compute_dtype: torch.dtype = torch.float32  # bfloat16 for the fast path
+
+
 def block_name(i: int) -> str:
     return "MobilenetV2/expanded_conv" + ("" if i == 0 else "_%d" % i)
+
+
+def block_names():
+    """The stem's scope, then each inverted-residual block's, in order."""
+    return ["MobilenetV2/Conv"] + [block_name(i) for i in range(len(_BLOCKS))]
 
 
 def init_student_params(seed: int = 0, num_classes: int = 19,

@@ -5,8 +5,9 @@ Counterpart of ``save_params``, ``load_params``, ``load_any`` and
 ``.npy`` dict snapshots, the ``.npz`` snapshots that
 ``save_to_frozen_graph`` writes, and ``load_tf_checkpoint`` for the
 reference's TF1 checkpoints (``model.index`` + ``model.data-*``), read by
-``utils.tf_bundle`` without TensorFlow.  Orbax directories raise: the card
-machine has no orbax.
+``utils.tf_bundle`` without TensorFlow, and ``save_orbax``/``load_orbax``
+for Orbax checkpoint directories, read and written by ``utils.orbax``
+without the orbax package.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Callable, Mapping, Optional
 import numpy as np
 
 from ams_tpu_torch.utils import tf_bundle
+from ams_tpu_torch.utils.orbax import load_orbax, save_orbax  # noqa: F401
 
 # Name fragments excluded when restoring weights, mirroring
 # SemanticNetwork.OPT_FILTER / OP_FILTER (reference SemanticNetwork.py:25-26):
@@ -73,11 +75,13 @@ def load_tf_checkpoint(prefix: str) -> dict:
 
 
 def load_any(path: str) -> dict:
-    """.npy dict, .npz snapshot or TF checkpoint prefix, in the JAX
-    package's ``load_any`` order: the path itself, then ``.npy``, then
-    ``.npz`` (each read through the restore filter, suffixes stripped),
-    then a TF prefix (``path.index``).  An Orbax directory raises
-    ``NotImplementedError``; nothing at the path, ``FileNotFoundError``."""
+    """.npy dict, .npz snapshot, TF checkpoint prefix or Orbax directory,
+    in the JAX package's ``load_any`` order: the path itself, then
+    ``.npy``, then ``.npz`` (each read through the restore filter,
+    suffixes stripped), then a TF prefix (``path.index``), then a
+    directory through ``load_orbax`` (no filter, suffixes stripped; one
+    without ``_METADATA`` raises ``FileNotFoundError``).  Nothing at the
+    path raises ``FileNotFoundError``."""
     path = str(path)
     for cand in (path, path + ".npy", path + ".npz"):
         if cand.endswith((".npz", ".npy")) and os.path.exists(cand):
@@ -85,9 +89,7 @@ def load_any(path: str) -> dict:
     if os.path.exists(path + ".index"):
         return load_tf_checkpoint(path)
     if os.path.isdir(path):
-        raise NotImplementedError(
-            "%r looks like an Orbax checkpoint; the port has no orbax: "
-            "convert it to .npz with the JAX package's ams-convert" % path)
+        return load_orbax(path)
     raise FileNotFoundError(path)
 
 

@@ -10,9 +10,9 @@ server's distillation events (256x512 frames, minibatch 10, 200
 iterations of coord_desc_auto), the emulated experiment, the live
 runtime, the multi-video server and the minibatch-parallel round, the
 Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
-513x1025 at batch 16), and the TF1 reader, the converter, the native
-codec, the TF32 round and the legacy builders; and checks each kernel of
-the paths on the card:
+513x1025 at batch 16), the TF1 reader, the converter, the native codec,
+the TF32 round, the legacy builders, Orbax checkpoints without orbax and
+the validation gate; and checks each kernel of the paths on the card:
 
 0. device line (name, power limit, torch and CUDA versions); a watchdog
    turns a hang into a traceback and a non-zero exit;
@@ -151,7 +151,20 @@ the paths on the card:
    algorithms off and equal to the bit, and png_decode of a 512x1024
    frame with every row Average and every row Paeth, equal to the
    pixels cv2 decoded from the same construction (DECODE_PROBE), timed;
-12. one JSON line of kernel numbers, the wall-clock, and as the last line
+12. Orbax checkpoints without orbax, every launch counter set to 0 just
+   before each part: (a) libzstd's version on the machine (without it the
+   run fails, naming libzstd.so.1); (b) the committed OCDBT fixture
+   (tests/fixtures/student_orbax, written by orbax) through load_any,
+   equal name for name and bit for bit to the TF1 fixture, both reads
+   timed 5 times; (c) save_orbax of that full-width student and
+   load_orbax back, bitwise, timed; (d) a frozen f32 client built from
+   the Orbax fixture and one from the TF1 prefix on the card, predict_input
+   of 8 frames of 512x1024: ids equal bit for bit, K1 launches equal,
+   above 0, and nothing else; (e) `python tools/torch_validate_reference.py
+   --stages inventory,convert,simple` on the TF1 fixture and a fresh bands
+   clip at --height 256 on the card: exit 0, inventory and convert OK, both
+   mIoUs finite, its wall time;
+13. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -3998,6 +4011,177 @@ def phase_rest(dev, codec_build):
     return out
 
 
+# --- phase 12: Orbax checkpoints without orbax, the validation gate --------
+# (a) libzstd on the card's machine, (b) the committed Orbax fixture (an
+# OCDBT store written by orbax) against the TF1 fixture, (c) save_orbax and
+# load_orbax at full width, (d) the f32 client built from either, (e)
+# tools/torch_validate_reference.py on a synthetic clip
+ORBAX_DIR = os.path.join("tests", "fixtures", "student_orbax")
+ORBAX_READS = 5                  # timed reads of each fixture
+ORBAX_WRITES = 3                 # timed save_orbax + load_orbax round trips
+VALIDATE_HEIGHT = 256            # the tool's --height (its default)
+VALIDATE_TIMEOUT_S = 600
+
+
+def same_arrays(got, want):
+    """Names equal, and each array's dtype, shape and bytes."""
+    return sorted(got) == sorted(want) and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+def _timed_ms(fn, reps):
+    """(ms of each call, the last result)."""
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return times, out
+
+
+def phase_orbax(dev, clip, gt):
+    """Phase 12: Orbax checkpoints read and written without orbax, and the
+    port's validation gate, every launch counter set to 0 just before each
+    part -> its record."""
+    import numpy as np
+    import torch
+    from ams_tpu_torch import configs
+    from ams_tpu_torch.runtime.network import SemanticNetwork
+    from ams_tpu_torch.utils import checkpoint as ckpt
+    from ams_tpu_torch.utils import orbax, zstd
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    prefix = os.path.join(root, TF1_PREFIX)
+    orbax_dir = os.path.join(root, ORBAX_DIR)
+    none = {k: 0 for k in launch_counts()}
+    rec = {}
+
+    # (a) the library that every OCDBT node and zarr chunk goes through;
+    # a machine without it raises here, naming libzstd.so.1
+    version = zstd.version()
+    rec["libzstd"] = {"version": version, "library": zstd.library()._name,
+                      "zstd_h": os.path.exists("/usr/include/zstd.h")}
+    log("  (a) libzstd %s (%s); zstd.h %s" % (
+        version, rec["libzstd"]["library"],
+        "present" if rec["libzstd"]["zstd_h"] else "absent"))
+
+    # (b) the committed OCDBT store against the TF1 fixture
+    reset_counters()
+    orbax_ms, from_orbax = _timed_ms(lambda: ckpt.load_any(orbax_dir),
+                                     ORBAX_READS)
+    tf1_ms, from_tf1 = _timed_ms(lambda: ckpt.load_tf_checkpoint(prefix),
+                                 ORBAX_READS)
+    check(len(from_tf1) == 272 and same_arrays(from_orbax, from_tf1),
+          "the Orbax fixture differs from the TF1 fixture")
+    check(launch_counts() == none, "the readers launched %s"
+          % launch_counts())
+    nbytes = int(sum(v.nbytes for v in from_tf1.values()))
+    rec["read"] = {"tensors": len(from_tf1), "bytes": nbytes,
+                   "orbax_ms": orbax_ms, "tf1_ms": tf1_ms}
+    log("  (b) %s (OCDBT, written by orbax) through load_any: %d tensors "
+        "(%.1f MB), equal name for name and bit for bit to the TF1 "
+        "fixture; read ms %s, against the TF1 reader's %s"
+        % (ORBAX_DIR, len(from_orbax), nbytes / 1e6,
+           ["%.1f" % t for t in orbax_ms], ["%.1f" % t for t in tf1_ms]))
+
+    # (c) the port's own layout: save_orbax, then load_orbax
+    tmp = tempfile.mkdtemp(prefix="ams_chip_smoke_orbax_")
+    try:
+        reset_counters()
+        path = os.path.join(tmp, "student")
+        write_ms, read_ms = [], []
+        for _ in range(ORBAX_WRITES):
+            t, _ = _timed_ms(lambda: orbax.save_orbax(path, from_tf1), 1)
+            write_ms += t
+            t, back = _timed_ms(lambda: orbax.load_orbax(path), 1)
+            read_ms += t
+            check(same_arrays(back, from_tf1),
+                  "save_orbax -> load_orbax changed the student")
+        check(sorted(os.listdir(tmp)) == ["student"],
+              "save_orbax left %s" % sorted(os.listdir(tmp)))
+        check(launch_counts() == none, "save_orbax launched %s"
+              % launch_counts())
+        rec["round_trip"] = {"write_ms": write_ms, "read_ms": read_ms}
+        log("  (c) save_orbax (zarr v2 per array, zstd 1) of the same "
+            "student: write ms %s, load_orbax ms %s, bitwise"
+            % (["%.1f" % t for t in write_ms], ["%.1f" % t for t in read_ms]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the f32 client built from either checkpoint on the card
+    frames = synthetic_frames(B, H, W, SEED + 50)
+    clients = {}
+    for name, src in (("orbax", orbax_dir), ("tf1", prefix)):
+        net = SemanticNetwork(src, configs.class_weights(0), height=H,
+                              frozen=True, device=dev)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        ids = net.predict_input(frames)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        clients[name] = {"ids": ids, "launches": launch_counts(), "s": s}
+        del net
+    k1 = {n: c["launches"]["resize_argmax"] for n, c in clients.items()}
+    check(clients["orbax"]["launches"] == clients["tf1"]["launches"]
+          and k1["orbax"] > 0
+          and all(v == 0 for c in clients.values()
+                  for k, v in c["launches"].items() if k != "resize_argmax"),
+          "the clients' launches differ or are not K1's alone: %s"
+          % {n: c["launches"] for n, c in clients.items()})
+    check(clients["orbax"]["ids"].shape == (B, H, W)
+          and np.array_equal(clients["orbax"]["ids"], clients["tf1"]["ids"]),
+          "the client from the Orbax fixture predicts other ids")
+    rec["client"] = {"k1_launches": k1, "first_predict_s": {
+        n: c["s"] for n, c in clients.items()},
+        "classes": np.unique(clients["orbax"]["ids"]).tolist()}
+    log("  (d) SemanticNetwork(frozen=True) from %s and from %s on %s: "
+        "predict_input of %dx%dx%d frames, ids equal bit for bit, K1 "
+        "launches %s and nothing else"
+        % (ORBAX_DIR, TF1_PREFIX, dev, B, H, W, k1))
+
+    # (e) the validation gate's inventory, convert and simple stages
+    work = tempfile.mkdtemp(prefix="ams_chip_smoke_validate_")
+    try:
+        cmd = [sys.executable, os.path.join(root, "tools",
+                                            "torch_validate_reference.py"),
+               "--stages", "inventory,convert,simple", "--checkpoint",
+               prefix, "--video", clip, "--gt_dir", gt, "--height",
+               str(VALIDATE_HEIGHT), "--device", dev.type, "--workdir",
+               os.path.join(work, "out")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                              timeout=VALIDATE_TIMEOUT_S,
+                              env=dict(os.environ, PYTHONPATH=root))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("[inventory]", "[convert]", "[simple]",
+                               "all requested", "FAILED"))]
+    for ln in lines:
+        log("    " + ln)
+    check(proc.returncode == 0, "torch_validate_reference.py failed (rc "
+          "%d): %s" % (proc.returncode, (proc.stdout + proc.stderr)[-3000:]))
+    mious = {}
+    for ln in lines:
+        if "rolling-window mIoU = " in ln:
+            mious[ln.split()[1]] = float(ln.split("= ")[1].split()[0])
+    check(any(ln.startswith("[inventory] OK") for ln in lines)
+          and any(ln.startswith("[convert] OK") for ln in lines)
+          and sorted(mious) == ["pretrained", "simple"]
+          and all(np.isfinite(v) for v in mious.values()),
+          "the validation gate's output: %s" % lines)
+    rec["validate"] = {"wall_s": wall, "miou": mious}
+    log("  (e) tools/torch_validate_reference.py --stages "
+        "inventory,convert,simple --height %d --device %s on %s: exit 0 in "
+        "%.1f s wall; mIoU pretrained %.4f, simple %.4f"
+        % (VALIDATE_HEIGHT, dev.type, os.path.basename(clip), wall,
+           mious["pretrained"], mious["simple"]))
+    return rec
+
+
 def main() -> int:
     if "--dp-rank" in sys.argv:
         return dp_rank_main(sys.argv[1:])
@@ -4100,6 +4284,17 @@ def main() -> int:
     width = phase_width(dev, teacher, clip_rgb, data_parallel.pop("width"))
     del teacher, clip_rgb
 
+    log("phase 12: Orbax checkpoints without orbax (libzstd, the committed "
+        "OCDBT fixture, save_orbax/load_orbax, the client from either "
+        "checkpoint) and tools/torch_validate_reference.py (inventory, "
+        "convert, simple at --height %d)" % VALIDATE_HEIGHT)
+    clip_root = tempfile.mkdtemp(prefix="ams_chip_smoke_clip_")
+    try:
+        clip, gt = write_bands_clip(clip_root)
+        orbax_rec = phase_orbax(dev, clip, gt)
+    finally:
+        shutil.rmtree(clip_root, ignore_errors=True)
+
     main_case = cases[0]
     kernels = [{
         "name": "resize_argmax", "route": "cuda", "source": fra.SOURCE,
@@ -4125,6 +4320,7 @@ def main() -> int:
         "live_path_launches": live_k1["k1_launches"],
         "multi_video_path_launches": multi_video["client_launches"][
             "resize_argmax"],
+        "orbax_path_launches": orbax_rec["client"]["k1_launches"],
         "teacher_max_abs_err": max(c["max_abs_err"] for c in teacher_cases),
         "teacher_cases": teacher_cases,
         "handover": handover,
@@ -4279,6 +4475,8 @@ def main() -> int:
            *rest["tf32_round"]["ms_per_iteration"]["highest"]))
     log("the rest of the port: %s" % json.dumps(rest))
     log("width partitioning: %s" % json.dumps(width))
+    log("Orbax checkpoints and the validation gate: %s"
+        % json.dumps(orbax_rec))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

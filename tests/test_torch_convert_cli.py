@@ -5,7 +5,8 @@ added for a declared format), plus a TF1 checkpoint prefix converted
 without TensorFlow and ``--fold`` equal to JAX's CLI output, each array
 bitwise; the flags are JAX's plus ``--device`` (the GPU unless
 ``--device cpu``, so without a card the default raises), and ``--format
-orbax`` raises.
+orbax`` (the default for a directory) writes an Orbax directory that
+JAX's ``load_orbax`` reads, and reads JAX's.
 """
 
 import os
@@ -20,9 +21,10 @@ import jax
 
 from ams_tpu.cli.convert import main as jax_main
 from ams_tpu.models.mobilenetv2_deeplab import init_student_params
+from ams_tpu.utils.checkpoint import load_orbax as jax_load_orbax
 
 from ams_tpu_torch.cli import convert as tconvert
-from ams_tpu_torch.utils.checkpoint import load_params
+from ams_tpu_torch.utils.checkpoint import load_any, load_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "student_tf1", "model")
@@ -79,10 +81,19 @@ def test_convert_appends_extension_for_declared_format(npy_ckpt, tmp_path):
     tconvert.main([src, dst, "--format", "npy", "--device", "cpu"])
     reloaded = load_params(dst + ".npy")
     assert "MobilenetV2/Conv/weights" in reloaded
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tconvert.main([src, str(tmp_path / "dir"), "--format", "orbax"])
-    with pytest.raises(NotImplementedError, match="orbax"):
-        tconvert.main([src, str(tmp_path / "dir")])
+    # --format orbax, and a destination with neither extension, write an
+    # Orbax directory, as ams-convert does; each package reads the other's
+    ours, ref = str(tmp_path / "dir"), str(tmp_path / "jax_dir")
+    for argv in ([src, ours, "--format", "orbax", "--device", "cpu"],
+                 [src, ours + "_default", "--device", "cpu"]):
+        tconvert.main(argv)
+        _assert_bitwise(jax_load_orbax(argv[1]), reloaded)
+    jax_main([src, ref])
+    _assert_bitwise(load_any(ref), jax_load_orbax(ref))
+    back = str(tmp_path / "back.npz")
+    tconvert.main([ref, back, "--device", "cpu"])
+    jax_main([ours, str(tmp_path / "jax_back.npz")])
+    _assert_bitwise(_npz(back), _npz(str(tmp_path / "jax_back.npz")))
 
 
 def test_tf_prefix_converts_as_jax_does(tmp_path):

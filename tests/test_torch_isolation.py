@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no ams_tpu, no cv2, no orbax, no
-tensorflow.
+tensorflow, no tensorstore, no zstandard.
 
 The card machine has none of these installed, so every module of
 ams_tpu_torch must import in a process where they cannot be found, and
-chip_smoke.py must not import them either.
+chip_smoke.py and tools/torch_validate_reference.py must not import them
+either.
 """
 
 import ast
@@ -13,7 +14,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "ams_tpu", "cv2", "orbax", "tensorflow")
+BLOCKED = ("jax", "jaxlib", "ams_tpu", "cv2", "orbax", "tensorflow",
+           "tensorstore", "zstandard")
 
 _CHILD = r"""
 import importlib, pkgutil, sys
@@ -57,7 +59,9 @@ def test_every_port_module_imports_without_jax_ams_tpu_cv2():
     assert int(proc.stdout.split()[-1]) == len(_port_modules()) >= 15
     assert {"ams_tpu_torch.compat", "ams_tpu_torch.native.build",
             "ams_tpu_torch.native.codec", "ams_tpu_torch.utils.tf_bundle",
-            "ams_tpu_torch.cli.convert"} <= set(_port_modules())
+            "ams_tpu_torch.cli.convert", "ams_tpu_torch.utils.zstd",
+            "ams_tpu_torch.utils.ocdbt", "ams_tpu_torch.utils.zarr2",
+            "ams_tpu_torch.utils.orbax"} <= set(_port_modules())
 
 
 def _imported_roots(path):
@@ -73,7 +77,8 @@ def _imported_roots(path):
 
 
 def test_chip_smoke_and_port_sources_import_none_of_them():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "torch_validate_reference.py")]
     for root, _, names in os.walk(os.path.join(REPO, "ams_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:

@@ -175,9 +175,16 @@ def test_load_any_matches_jax_and_names_what_it_cannot_read(tmp_path):
     (tmp_path / "tf.index").write_bytes(b"")   # a TF prefix, no table
     with pytest.raises(ValueError):
         ckpt.load_any(str(tmp_path / "tf"))
-    os.makedirs(tmp_path / "orbax")
-    with pytest.raises(NotImplementedError):
-        ckpt.load_any(str(tmp_path / "orbax"))
+    orbax_dir = str(tmp_path / "orbax")
+    jckpt.save_orbax(orbax_dir, params)         # OCDBT: orbax's default
+    got, want = ckpt.load_any(orbax_dir), jckpt.load_any(orbax_dir)
+    assert set(got) == set(want) == set(params)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k])
+    os.makedirs(tmp_path / "empty")
+    with pytest.raises(FileNotFoundError):
+        ckpt.load_any(str(tmp_path / "empty"))
     with pytest.raises(FileNotFoundError):
         ckpt.load_any(str(tmp_path / "none"))
 

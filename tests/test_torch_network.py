@@ -25,6 +25,7 @@ from ams_tpu import configs
 from ams_tpu.models import mobilenetv2_deeplab as jm
 from ams_tpu.runtime.network import SemanticNetwork as JaxNetwork
 from ams_tpu.stream import codec as jcodec
+from ams_tpu.utils import checkpoint as jckpt
 
 from ams_tpu_torch.runtime.network import SemanticNetwork as TorchNetwork
 
@@ -188,14 +189,26 @@ def test_client_rejects_what_is_not_ported(case, tmp_path):
     assert TorchNetwork(dict(params), frozen=True, compute_dtype="bfloat16",
                         **kw).compute_dtype == "bfloat16"
     # a TF prefix is read now, and an empty index is no table; an Orbax
-    # directory stays unread (no orbax on the card)
+    # directory that JAX's save_orbax wrote (OCDBT) gives the weights of
+    # the same dict's .npz, and an empty directory is no checkpoint
     tf_prefix = os.path.join(str(tmp_path), "model.ckpt")
     open(tf_prefix + ".index", "wb").close()
     with pytest.raises(ValueError):
         TorchNetwork(tf_prefix, frozen=True, **kw)
-    os.makedirs(os.path.join(str(tmp_path), "orbax"))
-    with pytest.raises(NotImplementedError):
-        TorchNetwork(os.path.join(str(tmp_path), "orbax"), frozen=True, **kw)
+    host = {k: np.asarray(v) for k, v in params.items()}
+    orbax_dir = os.path.join(str(tmp_path), "orbax")
+    jckpt.save_orbax(orbax_dir, host)
+    npz = os.path.join(str(tmp_path), "student.npz")
+    np.savez(npz, **host)
+    from_orbax = TorchNetwork(orbax_dir, frozen=True, **kw).params
+    from_npz = TorchNetwork(npz, frozen=True, **kw).params
+    assert sorted(from_orbax) == sorted(from_npz)
+    for k in from_npz:
+        assert from_orbax[k].dtype == from_npz[k].dtype, k
+        assert torch.equal(from_orbax[k], from_npz[k]), k
+    os.makedirs(os.path.join(str(tmp_path), "empty"))
+    with pytest.raises(FileNotFoundError):
+        TorchNetwork(os.path.join(str(tmp_path), "empty"), frozen=True, **kw)
     net = TorchNetwork(dict(params), frozen=True, **kw)
     with pytest.raises(ValueError):
         net.train_with_deque([], [], 1)
