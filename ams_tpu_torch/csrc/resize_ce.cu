@@ -71,6 +71,12 @@
 //     last grid row; within each, the tile to the left first), and in one
 //     more block sums the blocks' (sum ce v, sum v) in double into (loss,
 //     total).
+//   - Groups.  The B images may be G equal groups, each with its own mean
+//     (the videos of the batched multi-video round, whose students each
+//     take their own loss): G finishing blocks, one per group, each sum
+//     their group's band blocks in the order a launch over that group
+//     alone would, so one launch gives each group's (loss, total) with the
+//     bits of G separate launches.  The gradient is per image already.
 // So a training iteration costs two launches and one pass over the labels
 // and weights, with the upsample and softmax computed once; the
 // horizontal lerp runs once per band column and class, not once per
@@ -317,8 +323,9 @@ resize_ce_band(const float* __restrict__ grid,
 
 // Blocks 0 .. n_cell_blocks - 1: one thread per grid cell (b, k, gy, gx)
 // sums its contributions in a fixed order (see the header).  Block
-// n_cell_blocks: out[0] = loss, out[1] = total = max(sum v, 1), summing
-// the band blocks' partials in order in double.
+// n_cell_blocks + g, for each of the `groups` groups of images:
+// out[2 g] = loss, out[2 g + 1] = total = max(sum v, 1), summing the
+// group's band blocks' partials in order in double.
 __global__ void resize_ce_finish(const float* __restrict__ lpart,
                                  int n_band_blocks,
                                  const float* __restrict__ part,
@@ -327,21 +334,24 @@ __global__ void resize_ce_finish(const float* __restrict__ lpart,
                                  float* __restrict__ grad,
                                  float* __restrict__ out,
                                  int B, int C, int gh, int gw, int sumcol,
-                                 int n_cell_blocks) {
-    if ((int)blockIdx.x == n_cell_blocks) {
+                                 int n_cell_blocks, int groups) {
+    if ((int)blockIdx.x >= n_cell_blocks) {
         __shared__ double red[kFinishThreads];
+        const int g = (int)blockIdx.x - n_cell_blocks;
+        const int per = n_band_blocks / groups;   // band blocks are b-major
+        const float* lp = lpart + 2 * (long long)g * per;
         double num = 0.0, den = 0.0;
-        for (int i = threadIdx.x; i < n_band_blocks; i += blockDim.x) {
-            num += (double)lpart[2 * i];
-            den += (double)lpart[2 * i + 1];
+        for (int i = threadIdx.x; i < per; i += blockDim.x) {
+            num += (double)lp[2 * i];
+            den += (double)lp[2 * i + 1];
         }
         num = block_sum(num, red);
         __syncthreads();
         den = block_sum(den, red);
         if (threadIdx.x == 0) {
             const float total = fmaxf((float)den, 1.f);
-            out[0] = (float)num / total;
-            out[1] = total;
+            out[2 * g] = (float)num / total;
+            out[2 * g + 1] = total;
         }
         return;
     }
@@ -427,9 +437,11 @@ extern "C" int resize_ce_smem_limit(int device) {
 // Loss, and with grad != NULL the unnormalized grid gradient (B, C, gh,
 // gw).  Tables as resize_ce_band reads them (built by the host's plan);
 // lpart: 2 * B * gh * n_tiles floats of scratch; part: B * gh * 2 * C *
-// sumcol floats of scratch (unused without grad); out: 2 floats (loss,
-// total).  threads: a power of two, at most 128.  A block that needs more
-// shared memory than the card gives one returns cudaErrorInvalidValue.
+// sumcol floats of scratch (unused without grad); out: 2 * groups floats,
+// (loss, total) of each group of B / groups images (see the header).
+// threads: a power of two, at most 128.  A block that needs more shared
+// memory than the card gives one, or groups that do not divide B, return
+// cudaErrorInvalidValue.
 extern "C" int resize_ce_launch(const float* grid, const int* labels,
                                 const float* weights, const float* yw,
                                 const int* xlo, const int* xhi,
@@ -439,10 +451,11 @@ extern "C" int resize_ce_launch(const float* grid, const int* labels,
                                 float* grad, float* out,
                                 int B, int C, int gh, int gw, int H, int W,
                                 int n_tiles, int ncol_max, int sumcol,
-                                int threads, void* stream) {
+                                int threads, int groups, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
     if (threads < 32 || threads > kMaxThreads || (threads & (threads - 1)))
         return (int)cudaErrorInvalidValue;
+    if (groups < 1 || B % groups) return (int)cudaErrorInvalidValue;
     const bool want_grad = grad != nullptr;
     const int blocks = B * gh * n_tiles;
     const size_t smem = resize_ce_smem_bytes(C, threads, ncol_max, want_grad);
@@ -461,8 +474,8 @@ extern "C" int resize_ce_launch(const float* grid, const int* labels,
     const long long cells = want_grad ? (long long)B * C * gh * gw : 0;
     const int cell_blocks = (int)((cells + kFinishThreads - 1)
                                   / kFinishThreads);
-    resize_ce_finish<<<cell_blocks + 1, kFinishThreads, 0, s>>>(
+    resize_ce_finish<<<cell_blocks + groups, kFinishThreads, 0, s>>>(
         lpart, blocks, part, tiles, tile_of, grad, out, B, C, gh, gw, sumcol,
-        cell_blocks);
+        cell_blocks, groups);
     return (int)cudaGetLastError();
 }

@@ -63,8 +63,11 @@ def reduce_labels(labels: torch.Tensor, class_indices, num_classes):
     reduced = red[idx]
     weights = val[idx] * inside
     reduced = torch.where(weights > 0, reduced, torch.zeros_like(reduced))
-    filtered = torch.nn.functional.one_hot(
-        reduced.long(), len(class_indices)).float() * weights[..., None]
+    # one_hot by comparison: the same 0/1 rows, and torch.func.vmap can
+    # batch it (one_hot checks its range on the host)
+    classes = torch.arange(len(class_indices), device=labels.device)
+    filtered = (reduced.long()[..., None] == classes).float() \
+        * weights[..., None]
     return reduced, weights, filtered
 
 

@@ -28,7 +28,8 @@ ADAM_EPS = 1e-8
 
 
 class AdamState(NamedTuple):
-    step: torch.Tensor         # 0-dim int32, on the parameters' device
+    step: torch.Tensor         # 0-dim int32, on the parameters' device;
+    #                            (V,) for V videos' stacked states
     m: dict                    # first moments over the trainable params
     v: dict                    # second moments
 
@@ -44,12 +45,18 @@ def adam_init(trainable_params: dict) -> AdamState:
 @torch.no_grad()
 def adam_apply(params: dict, grads: dict, state: AdamState, lr):
     """One Adam step over the keys of ``grads``.  Returns (new_params,
-    new_state); the inputs are not modified."""
+    new_state); the inputs are not modified.  A stacked state (a (V,)
+    step, ``parallel.stack_videos``) steps V videos' stacked parameters
+    at once, each video at its own step count: the same numbers as V
+    calls."""
     keys = list(grads)
     t = state.step + 1
     tf_ = t.to(torch.float32)
     lr = torch.as_tensor(lr, dtype=torch.float32, device=tf_.device)
     lr_t = lr * torch.sqrt(1.0 - ADAM_BETA2 ** tf_) / (1.0 - ADAM_BETA1 ** tf_)
+    if lr_t.dim():
+        # one rate per video, over each parameter's trailing dimensions
+        lr_t = [lr_t.view(-1, *(1,) * (grads[k].dim() - 1)) for k in keys]
 
     g = [grads[k].float() for k in keys]
     m = torch._foreach_add(torch._foreach_mul([state.m[k] for k in keys],

@@ -172,6 +172,34 @@ def _flat_abs_delta(a, b):
     return torch.cat([torch.abs(a[k] - b[k]).reshape(-1) for k in sorted(a)])
 
 
+def _round_loss(spec, params_t, bn_state, frames, labels, class_mask,
+                cdtype, reduce=None):
+    """The round's loss on one minibatch, of the trainables ``params_t``
+    beside the BN state -> (loss, the BN batch moments that the moving
+    averages take; empty without ``spec.bn_train``)."""
+    merged = dict(params_t)
+    merged.update(bn_state)
+    stats = {}
+    loss, _aux = distill_loss(
+        merged, frames, labels, tuple(int(c) for c in spec.class_indices),
+        spec.num_classes, train=spec.bn_train, compute_dtype=cdtype,
+        stats_out=stats if spec.bn_train else None, fused=spec.fused_loss,
+        class_mask=class_mask, resize_via=spec.resize_via(cdtype),
+        reduce=reduce)
+    return loss, stats
+
+
+def _bn_update(bn_state, stats):
+    """The BN moving averages after one step; the recorded variance is
+    already Bessel-corrected."""
+    keys = list(bn_state)
+    moving = [bn_state[k] for k in keys]
+    diff = torch._foreach_mul(
+        torch._foreach_sub(moving, [stats[k] for k in keys]),
+        1.0 - layers.BN_DECAY)
+    return dict(zip(keys, torch._foreach_sub(moving, diff)))
+
+
 def make_distill_round(spec: DistillSpec, reduce=None, width_devices=None):
     """Build the round function; with ``reduce`` (a
     ``parallel.collectives.SumReducer``), this rank's part of the
@@ -203,7 +231,6 @@ def make_distill_round(spec: DistillSpec, reduce=None, width_devices=None):
     spec.check_supported(sharded=reduce is not None,
                          width_split=len(width) > 1)
     auto = spec.strategy == "coord_desc_auto"
-    ci = tuple(int(c) for c in spec.class_indices)
     rows = slice(None)           # this rank's rows of the minibatch
     if reduce is not None:
         if spec.batch_size % reduce.world:
@@ -217,16 +244,9 @@ def make_distill_round(spec: DistillSpec, reduce=None, width_devices=None):
                        cdtype):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params_t.items()}
-        merged = dict(leaves)
-        merged.update(bn_state)
-        stats = {}
         with torch.enable_grad():
-            loss, _aux = distill_loss(
-                merged, frames, labels, ci, spec.num_classes,
-                train=spec.bn_train, compute_dtype=cdtype,
-                stats_out=stats if spec.bn_train else None,
-                fused=spec.fused_loss, class_mask=class_mask,
-                resize_via=spec.resize_via(cdtype), reduce=reduce)
+            loss, stats = _round_loss(spec, leaves, bn_state, frames, labels,
+                                      class_mask, cdtype, reduce)
             keys = list(leaves)
             if reduce is None:
                 grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
@@ -288,14 +308,8 @@ def make_distill_round(spec: DistillSpec, reduce=None, width_devices=None):
                                                 labels, class_mask, cdtype)
             stepped, opt_state = adam_apply(params_t, grads, opt_state, lr)
             if spec.bn_train:
-                # every step, for every BN, whatever the mask; the recorded
-                # variance is already Bessel-corrected (bessel=False here)
-                keys = list(bn_state)
-                moving = [bn_state[k] for k in keys]
-                diff = torch._foreach_mul(
-                    torch._foreach_sub(moving, [stats[k] for k in keys]),
-                    1.0 - layers.BN_DECAY)
-                bn_state = dict(zip(keys, torch._foreach_sub(moving, diff)))
+                # every step, for every BN, whatever the mask
+                bn_state = _bn_update(bn_state, stats)
             return loss, stepped, bn_state, opt_state
 
         first_iter = 0

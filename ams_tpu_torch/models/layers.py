@@ -27,10 +27,15 @@ is also put in ``torch.channels_last`` memory, the NHWC storage that both
 cuDNN's bf16 convolutions and the port's fused MBConv kernel read, so the
 unfused and fused blocks chain without a permute copy; cuDNN (and oneDNN on
 the CPU) accumulate in f32 and return bf16.  Float32 stays in the default
-layout, with TF32 off (``utils.platform``).
+layout, with TF32 off (``utils.platform``).  Inside ``video_batched()``
+(the batched multi-video round's ``torch.func.vmap``) bfloat16 keeps the
+default layout too.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +44,21 @@ from ams_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-3          # FusedBatchNormV3 epsilon in the reference meta graph
 BN_DECAY = 0.9         # moving-average decay of the reference's BN updates
+
+_VIDEO_BATCHED = contextvars.ContextVar("video_batched", default=False)
+
+
+@contextlib.contextmanager
+def video_batched():
+    """Inside, the layers run under ``torch.func.vmap`` over videos: an
+    activation holds a video axis that its shape does not show, and a 4-D
+    memory format cannot apply to it, so bfloat16 convolutions keep the
+    batching rule's layout instead of ``torch.channels_last``."""
+    token = _VIDEO_BATCHED.set(True)
+    try:
+        yield
+    finally:
+        _VIDEO_BATCHED.reset(token)
 
 
 def _same_pad(size: int, k: int, stride: int, rate: int):
@@ -87,7 +107,7 @@ def _cast(x, w, compute_dtype):
     cd = as_dtype(compute_dtype)
     if cd is None:
         return x, w
-    if cd == torch.bfloat16:
+    if cd == torch.bfloat16 and not _VIDEO_BATCHED.get():
         return (x.to(cd, memory_format=torch.channels_last), w.to(cd))
     return x.to(cd), w.to(cd)
 

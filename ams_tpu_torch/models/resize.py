@@ -92,13 +92,22 @@ def _device_bands(in_size: int, out_size: int, lo: int, hi: int,
 class _BandedSelect(torch.autograd.Function):
     """``x.index_select(dim, idx)`` for a non-decreasing ``idx``; the
     backward gathers each source row's band of output gradients (zeros
-    past its end) and sums over the band axis, in a fixed order."""
+    past its end) and sums over the band axis, in a fixed order.  In the
+    ``setup_context`` form with a generated vmap rule, so that
+    ``torch.func`` can transform it: under ``vmap`` the backward's sum
+    runs over the same band axis of every video, in the same order."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, dim, idx, table):
+    def forward(x, dim, idx, table):
+        return x.index_select(dim, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, dim, _, table = inputs
         ctx.dim = dim
         ctx.save_for_backward(table)
-        return x.index_select(dim, idx)
 
     @staticmethod
     def backward(ctx, g):

@@ -14,7 +14,12 @@ kernel, and nothing falls back from one to the other: under grad, with a
 grid that needs a gradient, the forward computes the loss and the
 gradient in one launch (``resize_ce_loss_grad``) and the backward only
 scales it, as JAX's ``_fwd``/``_bwd`` do; otherwise the loss-only variant
-runs (``resize_ce_loss``).  ``resize_ce_plan`` cuts a shape into the
+runs (``resize_ce_loss``).  Under ``torch.func.vmap`` (the batched
+multi-video round, ``parallel.sharded.make_vmapped_multi_video_round``) the
+node's vmap rule launches the kernel once for all V videos, their V x B
+images in V groups, each with its own masked mean and weight total;
+anything else that reaches the kernel under ``vmap`` raises, as a batched
+tensor has no data pointer.  ``resize_ce_plan`` cuts a shape into the
 kernel's blocks, and ``class_plan`` picks the largest cut whose band
 block fits the card's shared memory at a class count: any C up to 829
 runs on an H100.
@@ -185,7 +190,7 @@ def library():
     lib = build.load("resize_ce")
     if lib.resize_ce_launch.argtypes is None:
         lib.resize_ce_launch.argtypes = [ctypes.c_void_p] * 15 \
-            + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         lib.resize_ce_launch.restype = ctypes.c_int
         lib.resize_ce_smem_bytes.argtypes = [ctypes.c_int] * 4
         lib.resize_ce_smem_bytes.restype = ctypes.c_size_t
@@ -194,13 +199,13 @@ def library():
     return lib
 
 
-def _launch(grid, labels, weights, out_hw, want_grad):
+def _launch(grid, labels, weights, out_hw, want_grad, groups=None):
     b, c, gh, gw = grid.shape
     h, w = int(out_hw[0]), int(out_hw[1])
     plan, tables = _tables(c, gh, gw, h, w, grid.device)
     dev = grid.device
     lpart = torch.empty(2 * plan.blocks(b), dtype=torch.float32, device=dev)
-    out = torch.empty(2, dtype=torch.float32, device=dev)
+    out = torch.empty(2 * (groups or 1), dtype=torch.float32, device=dev)
     part = grad = None
     if want_grad:
         part = torch.empty(b * gh * 2 * c * plan.sumcol, dtype=torch.float32,
@@ -215,14 +220,16 @@ def _launch(grid, labels, weights, out_hw, want_grad):
             None if part is None else part.data_ptr(),
             None if grad is None else grad.data_ptr(), out.data_ptr(),
             b, c, gh, gw, h, w, len(plan.tiles), plan.ncol_max, plan.sumcol,
-            plan.threads, stream)
+            plan.threads, groups or 1, stream)
     if err != 0:
         raise RuntimeError(
             "resize_ce kernel launch failed: CUDA error %d (grid %s -> %dx%d, "
             "%d B of shared memory per block)"
             % (err, tuple(grid.shape), h, w, lib.resize_ce_smem_bytes(
                 c, plan.threads, plan.ncol_max, int(want_grad))))
-    return out[0], out[1], grad
+    if groups is None:
+        return out[0], out[1], grad
+    return out[0::2], out[1::2], grad
 
 
 def resize_ce_loss(grid, labels, weights, out_hw):
@@ -233,11 +240,13 @@ def resize_ce_loss(grid, labels, weights, out_hw):
     return loss, total
 
 
-def resize_ce_loss_grad(grid, labels, weights, out_hw):
+def resize_ce_loss_grad(grid, labels, weights, out_hw, groups=None):
     """Launch the kernel with the gradient: -> (loss, total, grad), grad
     the unnormalized grid gradient (B, C, gh, gw), the sum over pixels of
-    R^T ((softmax - onehot) * w) C^T."""
-    out = _launch(grid, labels, weights, out_hw, True)
+    R^T ((softmax - onehot) * w) C^T.  With ``groups`` G, the B images
+    are G equal groups (videos): loss and total are then (G,), each
+    group's as a launch over that group alone gives it."""
+    out = _launch(grid, labels, weights, out_hw, True, groups=groups)
     resize_ce_loss_grad.launches += 1
     return out
 
@@ -247,21 +256,45 @@ resize_ce_loss_grad.launches = 0
 
 
 class _ResizeCE(torch.autograd.Function):
-    """The kernel as an autograd node.  As the JAX custom_vjp's ``_fwd``
-    does, the forward computes the loss and the unnormalized gradient in
-    one launch and saves the gradient (B, C, gh, gw) and the weight total;
-    the backward scales it by g / total and launches nothing."""
+    """The kernel as an autograd node: -> (loss, total, grad), the last
+    two not differentiable.  As the JAX custom_vjp's ``_fwd`` does, the
+    forward computes the loss and the unnormalized gradient in one launch
+    and keeps the gradient (B, C, gh, gw) and the weight total; the
+    backward scales it by g / total and launches nothing.  In the
+    ``setup_context`` form, with a vmap rule, so that ``torch.func`` can
+    transform it."""
 
     @staticmethod
-    def forward(ctx, grid, labels, weights, out_hw):
-        loss, total, grad = resize_ce_loss_grad(grid, labels, weights, out_hw)
+    def forward(grid, labels, weights, out_hw):
+        return resize_ce_loss_grad(grid, labels, weights, out_hw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, total, grad = output
+        ctx.mark_non_differentiable(total, grad)
         ctx.save_for_backward(grad, total)
-        return loss
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, _g_total, _g_grad):
         grad, total = ctx.saved_tensors
         return grad * (g / total), None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, grid, labels, weights, out_hw):
+        """V videos' (B, ...) inputs as one launch over V x B images in
+        V groups: each video's loss and total are its own."""
+        v = info.batch_size
+
+        def lead(t, d):
+            t = t.expand(v, *t.shape) if d is None else t.movedim(d, 0)
+            return t.contiguous()
+
+        grid, labels, weights = (lead(t, d) for t, d in
+                                 zip((grid, labels, weights), in_dims))
+        loss, total, grad = resize_ce_loss_grad(
+            grid.flatten(0, 1), labels.flatten(0, 1), weights.flatten(0, 1),
+            out_hw, groups=v)
+        return (loss, total, grad.view(grid.shape)), (0, 0, 0)
 
 
 def fused_resize_ce(grid: torch.Tensor, labels: torch.Tensor,
@@ -309,5 +342,5 @@ def fused_resize_ce(grid: torch.Tensor, labels: torch.Tensor,
                          % (tuple(grid.shape), h, w))
     # decided here: grad mode is off inside Function.forward
     if torch.is_grad_enabled() and grid.requires_grad:
-        return _ResizeCE.apply(grid, labels, weights, (h, w))
+        return _ResizeCE.apply(grid, labels, weights, (h, w))[0]
     return resize_ce_loss(grid, labels, weights, (h, w))[0]

@@ -24,11 +24,16 @@ signatures; the ``rng`` arguments are ``torch.Generator``s.
    each device runs its videos' whole rounds one after another, one host
    thread per device.  On one card that is all V, serially.
 
-``make_vmapped_multi_video_round`` has the same signature and computes the
-same per-video results serially on the inputs' device: JAX's ``vmap`` over
-per-video weights has no counterpart here (ROADMAP C).  Teacher labeling
-splits the frame batch over the mesh's ``data`` axis and the width over
-its ``model`` axis (``make_sharded_labeler``).
+3. **The batched-weights multi-video round**
+   (``make_vmapped_multi_video_round``): the same signature and per-video
+   results as one program over the V students' stacked weights on one
+   device, as JAX's ``jax.vmap`` over the round: the loss and its
+   gradients through ``torch.func.vmap(torch.func.grad_and_value(...))``,
+   so that every convolution runs once for all V videos (V folded into
+   its groups), and the rest of each iteration on the stacked tensors.
+
+Teacher labeling splits the frame batch over the mesh's ``data`` axis and
+the width over its ``model`` axis (``make_sharded_labeler``).
 """
 
 from __future__ import annotations
@@ -225,23 +230,180 @@ def make_multi_video_round(spec: DistillSpec, mesh: Mesh,
     return _video_rounds(bases, devices, reselect, with_class_mask)
 
 
+def row_quantiles(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``torch.quantile(x[v], q, interpolation="linear")`` for every row
+    of a 2-D ``x``, row by row: the single round's call on each video's
+    |delta|, under the same input limit (2**24 entries), which a whole
+    (V, N) ``x`` flattened would pass first."""
+    return torch.stack([torch.quantile(r, q, interpolation="linear")
+                        for r in x])
+
+
+def _select(stepped, before, frac):
+    """The peeled coord_desc_auto selection of V videos at once: each
+    video's top ``frac`` of |stepped - before| over all its trainables,
+    by its own threshold -> (masks, thresholds (V,), ties (V,))."""
+    keys = sorted(stepped)
+    delta = {k: torch.abs(stepped[k] - before[k]) for k in keys}
+    v = delta[keys[0]].shape[0]
+    flat = torch.cat([delta[k].reshape(v, -1) for k in keys], dim=1)
+    thr = row_quantiles(flat, 1.0 - frac)
+    mask = {k: delta[k] > thr.view(-1, *(1,) * (delta[k].dim() - 1))
+            for k in stepped}
+    return mask, thr, torch.sum(flat == thr[:, None], dim=1)
+
+
 def make_vmapped_multi_video_round(spec: DistillSpec, reselect: bool = None,
                                    with_class_mask: bool = False):
-    """``make_multi_video_round``'s signature and per-video results on the
-    inputs' one device, the videos' rounds run one after another.
+    """``make_multi_video_round``'s signature and per-video results as one
+    program over the V students' stacked weights on the inputs' one
+    device:
+        fn(params_V, opt_V, frames_V, labels_V, n_valid_V, gens_V, lr,
+           mask_V[, class_mask_V]) -> (params_V, opt_V, mask_V, losses_V)
 
-    JAX's version ``vmap``s one program over the videos' weights, which
-    its docstring measured slower than serial rounds on a TPU; its
-    semantics are the serial rounds' (tests/test_vmapped_round.py), which
-    this computes.  A batched-weights version (grouped convolutions) is
-    not ported (ROADMAP C).
+    Each iteration draws every video's minibatch from its own generator
+    as its serial round draws it; takes the V losses and their gradients
+    as ``torch.func.vmap`` of ``torch.func.grad_and_value`` of the round's
+    loss, the BN batch moments its aux output; then the stacked Adam step,
+    the BN moving averages, the peeled ``coord_desc_auto`` selection (each
+    video's quantile over its own row of |delta|) and the masks' ``where``
+    on the stacked tensors, one launch per op for all videos.  With
+    ``spec.fused_loss`` K2 runs once per iteration over the V x B images
+    (``ops.fused_resize_ce``).  Batched convolutions sum in another order
+    than V single ones, so the results are the serial rounds' to rounding,
+    not to the bit.
+
+    A spec with ``width_axis`` or ``batch_axis`` raises ``ValueError``, as
+    do a video count that differs between the inputs and videos' frames
+    or labels of different shapes.  After a selecting
+    call, ``fn.last_selection`` holds each video's threshold and the count
+    of |delta| values equal to it, (V,) device tensors.
     """
-    from ams_tpu_torch.distill.train_step import make_distill_round
+    from ams_tpu_torch.distill.optimizer import adam_apply
+    from ams_tpu_torch.distill.train_step import (
+        _bn_update,
+        _round_loss,
+        _tree_where,
+        split_params,
+    )
+    from ams_tpu_torch.models.layers import video_batched
+    from ams_tpu_torch.utils.platform import conv_precision
 
+    if spec.width_axis or spec.batch_axis:
+        raise ValueError("the batched multi-video round runs on one device: "
+                         "no width_axis (%r) or batch_axis (%r)"
+                         % (spec.width_axis, spec.batch_axis))
+    spec.check_supported()
     if reselect is None:
         reselect = spec.strategy == "coord_desc_auto"
-    return _video_rounds([make_distill_round(spec)], [None], reselect,
-                         with_class_mask)
+
+    def batched_grads(cdtype):
+        """(params_t, bn_state, frames, labels, class_mask), each with a
+        leading V axis (no class mask: None) -> (grads, (losses, BN
+        moments))."""
+        def loss_fn(p, bn, f, lab, cm):
+            return _round_loss(spec, p, bn, f, lab, cm, cdtype)
+        return torch.func.vmap(
+            torch.func.grad_and_value(loss_fn, has_aux=True),
+            in_dims=(0, 0, 0, 0, 0 if with_class_mask else None))
+
+    grad_fns = {cd: batched_grads(cd)
+                for cd in {spec.cdtype, spec.select_cdtype}}
+
+    @torch.no_grad()
+    def fn(params_V, opt_V, frames_V, labels_V, n_valid_V, gens_V, lr,
+           mask_V, class_mask_V=None):
+        if with_class_mask != (class_mask_V is not None):
+            raise ValueError("the round was built with with_class_mask=%s"
+                             % with_class_mask)
+        V = len(gens_V)
+        counts = {len(frames_V), len(labels_V), len(n_valid_V)}
+        counts |= {int(x.shape[0]) for t in (params_V, opt_V, mask_V)
+                   for x in _leaves(t)}
+        if class_mask_V is not None:
+            counts.add(len(class_mask_V))
+        if counts != {V}:
+            raise ValueError("the inputs hold different video counts: %s"
+                             % sorted(counts))
+        with conv_precision(spec.conv_precision):
+            return run(params_V, opt_V, frames_V, labels_V, n_valid_V,
+                       gens_V, lr, mask_V, class_mask_V)
+
+    def run(params_V, opt_V, frames_V, labels_V, n_valid_V, gens_V, lr,
+            mask_V, class_mask_V):
+        V = len(gens_V)
+        params_t, bn_state = split_params(params_V)
+        dev = next(iter(params_t.values())).device
+        before = params_t
+        his = [max(int(n), 1) for n in n_valid_V]
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+        if class_mask_V is not None:
+            class_mask_V = torch.as_tensor(class_mask_V).to(dev)
+        frames_V, labels_V = (_stacked(b, dev)
+                              for b in (frames_V, labels_V))
+        videos = torch.arange(V, device=dev)[:, None]
+
+        def draw():
+            idx = torch.stack([
+                torch.randint(0, hi, (spec.batch_size,), generator=g,
+                              device=dev) for hi, g in zip(his, gens_V)])
+            return frames_V[videos, idx].float(), labels_V[videos, idx]
+
+        def step(params_t, bn_state, opt, cdtype):
+            frames, labels = draw()
+            with video_batched():
+                grads, (loss, stats) = grad_fns[cdtype](
+                    params_t, bn_state, frames, labels, class_mask_V)
+            stepped, opt = adam_apply(params_t, grads, opt, lr)
+            if spec.bn_train:
+                bn_state = _bn_update(bn_state, stats)
+            return loss, stepped, bn_state, opt
+
+        opt, mask, losses = opt_V, mask_V, []
+        first_iter = 0
+        if reselect and spec.strategy == "coord_desc_auto" and spec.iters:
+            loss0, stepped, bn_state, opt = step(params_t, bn_state, opt,
+                                                 spec.select_cdtype)
+            mask, thr, ties = _select(stepped, before, spec.coord_frac)
+            fn.last_selection = {"threshold": thr, "ties": ties}
+            params_t = _tree_where(mask, stepped, before)
+            first_iter = 1
+            losses.append(loss0)
+        for _ in range(first_iter, spec.iters):
+            loss, stepped, bn_state, opt = step(params_t, bn_state, opt,
+                                                spec.cdtype)
+            params_t = _tree_where(mask, stepped, params_t)
+            losses.append(loss)
+
+        out = dict(params_t)
+        out.update(bn_state)
+        losses = torch.stack(losses, dim=1) if losses else \
+            torch.zeros((V, 0), dtype=torch.float32, device=dev)
+        return out, opt, mask, losses
+
+    fn.last_selection = None
+    return fn
+
+
+def _stacked(bufs, dev):
+    """Per-video buffers as one (V, ...) tensor on ``dev``, from which one
+    gather draws every video's minibatch."""
+    if isinstance(bufs, torch.Tensor):
+        return bufs.to(dev)
+    shapes = {tuple(b.shape) for b in bufs}
+    if len(shapes) != 1:
+        raise ValueError("the batched round takes the videos' buffers at "
+                         "one shape, got %s" % sorted(shapes))
+    return torch.stack([b.to(dev) for b in bufs])
+
+
+def _leaves(tree):
+    """The tensor leaves of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
 
 
 def make_sharded_labeler(mesh: Mesh, teacher_params,

@@ -11,8 +11,9 @@ iterations of coord_desc_auto), the emulated experiment, the live
 runtime, the multi-video server and the minibatch-parallel round, the
 Xception-65 teacher in the batched labeler (257x513 frames at batch 32,
 513x1025 at batch 16), the TF1 reader, the converter, the native codec,
-the TF32 round, the legacy builders, Orbax checkpoints without orbax and
-the validation gate; and checks each kernel of the paths on the card:
+the TF32 round, the legacy builders, Orbax checkpoints without orbax,
+the validation gate and the batched-weights multi-video round; and checks
+each kernel of the paths on the card:
 
 0. device line (name, power limit, torch and CUDA versions); a watchdog
    turns a hang into a traceback and a non-zero exit;
@@ -164,7 +165,23 @@ the validation gate; and checks each kernel of the paths on the card:
    --stages inventory,convert,simple` on the TF1 fixture and a fresh bands
    clip at --height 256 on the card: exit 0, inventory and convert OK, both
    mIoUs finite, its wall time;
-13. one JSON line of kernel numbers, the wall-clock, and as the last line
+13. the batched-weights multi-video round (make_vmapped_multi_video_round,
+   one torch.func program over the V students' stacked weights) on phase
+   9's server state, clip, generators and V: (a) 6 iterations against the
+   serial round (make_multi_video_round) from the same state, each video's
+   losses within 5% (tests/test_vmapped_round.py's bar; beside the serial
+   round's own spread under cuDNN's default algorithms), its weights
+   within phase 9's bar, its BN statistics within 0.1 of max(|v|, 1) and
+   its masks agreeing on 0.999, with both peaks of device memory; one iteration's convolution calls equal to one single-video
+   iteration's, with the layout and groups the batching rule gives; (b)
+   200 iterations, ms per video-iteration beside phase 9's serial round,
+   the peak memory, and a 20-iteration keep_mask round's device busy share
+   under a CUDA-only profile; (c) with the fused loss for 6 iterations,
+   every counter set to 0 just before it: K2 loss+grad once per iteration
+   for all videos and nothing else; K2 under vmap at the round's shape
+   against its plain version under vmap (phase 2's bars), and its grouped
+   launch against V launches, bitwise, both timed;
+14. one JSON line of kernel numbers, the wall-clock, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, and the script exits non-zero without the last
@@ -343,42 +360,82 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+_PROFILER_EMPTY = []   # set once a profile's retries all came back empty
+
+
+def cuda_profile(body, cpu=False, tries=3):
+    """A torch.profiler profile of ``body()`` (the card's kernels and
+    copies, and the host's ops with ``cpu``), or None when it recorded no
+    device time.  torch.profiler has come back empty on the card now and
+    then, once for every profile of a process: an empty profile is taken
+    again, up to ``tries`` in all, and once that many have come back empty
+    in a row, each later profile is taken once.  Callers report the device's
+    time as not measured then (CUDA events still time every call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(1 if _PROFILER_EMPTY else tries):
+        with profile(activities=acts) as prof:
+            body()
+            torch.cuda.synchronize()
+        if sum(e.self_device_time_total for e in prof.key_averages()) > 0:
+            return prof
+        log("  torch.profiler recorded no device time")
+    if tries > 1 and not _PROFILER_EMPTY:
+        log("  three profiles in a row without device time: the device's "
+            "time is not measured where only the profiler gives it")
+        _PROFILER_EMPTY.append(True)
+    return None
+
+
+def ms_text(t, fmt="%.4f"):
+    """A time for the log, or "not measured" for None."""
+    return "not measured" if t is None else fmt % t
+
+
+def event_device(times):
+    """(CUDA events ms, device ms or None) as (float, text) for the log."""
+    return times[0], ms_text(times[1])
+
+
 def device_ms(fn, iters):
     """Mean device time per call of ``fn``: the CUDA kernels' durations
     summed by torch.profiler over ``iters`` calls after one warm-up,
     without the idle gaps between launches that ``cuda_ms`` counts when
-    the host cannot keep up with a short kernel."""
+    the host cannot keep up with a short kernel; None when the profiler
+    recorded no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # torch.profiler has come back empty on the card now and then: a
-    # profile without device time is taken again, up to three in all
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total
-                       for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / 1e3 / iters
-        log("  torch.profiler recorded no device time; profiling again")
-    check(False, "torch.profiler recorded no device time in 3 profiles")
+
+    def body():
+        for _ in range(iters):
+            fn()
+
+    prof = cuda_profile(body)
+    if prof is None:
+        return None
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / iters
 
 
 def device_breakdown(fn, top=8):
     """Device time of one ``fn()`` call by kernel name (torch.profiler),
     as printable lines, largest first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    return profile_lines(cuda_profile(fn), top)
+
+
+def profile_lines(prof, top=8):
+    """A CUDA profile's device time by kernel name, as printable lines,
+    largest first; one line saying so for a profile that is None."""
+    if prof is None:
+        return ["torch.profiler recorded no device time: not measured"]
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()]
     total = sum(r[1] for r in rows)
@@ -513,10 +570,10 @@ def k1_case(label, grid, h, w, ci=None):
         "near-tie pixels %d); same bits on rerun %s"
         % (label, row["shape"], row["dtype"],
            " channels-last" if cl else "", mism, off, n_ties, same_bits))
-    log("    ms per call by events / on the device: kernel %.4f / %.4f, "
-        "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
-        % (times["kernel"] + times["plain"] + times["library"]
-           + (bound, bound_by)))
+    log("    ms per call by events / on the device: kernel %.4f / %s, "
+        "plain %.4f / %s, library %.4f / %s, bound %.4f (%s)"
+        % (event_device(times["kernel"]) + event_device(times["plain"])
+           + event_device(times["library"]) + (bound, bound_by)))
     check(off == 0, "resize_argmax disagrees with its plain version off "
           "ties in case %s: %d pixels" % (label, off))
     check(same_bits, "resize_argmax: two runs differ in case %s" % label)
@@ -563,20 +620,81 @@ def phase_kernel_checks(dev):
 
 def kernels_in_order(fn):
     """The device kernels of one ``fn()`` call in launch order
-    (torch.profiler), after one warm-up call."""
+    (torch.profiler), after one warm-up call, and "profiler"; when the
+    profiler records no device time, the device ops of ``ops_in_order``
+    and "dispatch"."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = cuda_profile(fn)
+    if prof is None:
+        return ops_in_order(fn), "dispatch"
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(events, "torch.profiler recorded no device kernels")
     events.sort(key=lambda e: e.time_range.start)
-    return [e.name for e in events]
+    return [e.name for e in events], "profiler"
+
+
+# a cast, gather or copy before K1, as each record of kernels_in_order
+# names it: a copy kernel on the card; among the dispatched ops a .to, a
+# .contiguous, a clone or a copy that made new storage, or a gather
+HANDOVER_COPY = {"profiler": r"copy|index_?select|gather|memcpy",
+                 "dispatch": r"copy|clone|contiguous|aten\.to\.|index|gather"}
+
+# aten ops that launch no kernel: they only make storage
+_NO_KERNEL_OPS = ("empty", "empty_strided", "empty_like", "new_empty",
+                  "new_empty_strided", "lift_fresh", "set_", "resize_")
+
+
+def ops_in_order(fn, device="cuda"):
+    """The aten ops of one ``fn()`` call that may launch a kernel on
+    ``device``, in dispatch order, with "resize_argmax" where K1's wrapper
+    launched (its count went up): the launch order check's record when
+    torch.profiler records no device time.  A dispatch mode needs no
+    CUPTI.  Left out: ops on no ``device`` tensor, bare allocations, and
+    ops whose outputs all share their inputs' storage (views, a ``.to`` or
+    ``.contiguous`` that had nothing to do); an in-place op stays in."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from ams_tpu_torch.ops import fused_resize_argmax as fra
+
+    def tensors(tree):
+        return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+    def may_launch(func, ins, outs):
+        if (func.overloadpacket.__name__ in _NO_KERNEL_OPS
+                or not any(t.device.type == device for t in ins + outs)):
+            return False
+        if func._schema.is_mutable:
+            return True
+        base = {t.untyped_storage().data_ptr() for t in ins}
+        return not outs or any(t.untyped_storage().data_ptr() not in base
+                               for t in outs)
+
+    k1 = fra.fused_resize_argmax
+    names = []
+
+    def note_launches():
+        while seen[0] < k1.launches:
+            names.append("resize_argmax")
+            seen[0] += 1
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            note_launches()
+            out = func(*args, **(kwargs or {}))
+            if may_launch(func, tensors((args, kwargs)), tensors(out)):
+                names.append(str(func))
+            return out
+
+    fn()
+    seen = [k1.launches]
+    with Log():
+        fn()
+    note_launches()
+    return names
 
 
 def phase_main_path(dev):
@@ -927,13 +1045,15 @@ def phase_resize_ce_checks(dev):
             % (label, row["shape"], float(k_loss), loss_err, grad_err,
                same_bits, lib_err))
         log("    ms per call by events / on the device: loss kernel %.4f / "
-            "%.4f, plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s); "
-            "loss+grad kernel %.4f / %.4f (through autograd %.4f / %.4f), "
-            "plain %.4f / %.4f, library %.4f / %.4f, bound %.4f (%s)"
-            % (times["loss"] + times["loss_plain"] + times["loss_library"]
-               + (lb, lby) + times["loss_grad"] + times["loss_grad_autograd"]
-               + times["loss_grad_plain"] + times["loss_grad_library"]
-               + (gb, gby)))
+            "%s, plain %.4f / %s, library %.4f / %s, bound %.4f (%s); "
+            "loss+grad kernel %.4f / %s (through autograd %.4f / %s), "
+            "plain %.4f / %s, library %.4f / %s, bound %.4f (%s)"
+            % (event_device(times["loss"]) + event_device(times["loss_plain"])
+               + event_device(times["loss_library"]) + (lb, lby)
+               + event_device(times["loss_grad"])
+               + event_device(times["loss_grad_autograd"])
+               + event_device(times["loss_grad_plain"])
+               + event_device(times["loss_grad_library"]) + (gb, gby)))
         out.append(row)
     return out
 
@@ -1736,23 +1856,24 @@ def phase_bf16_client(dev, host):
         # when the trace holds no K1 at all
         for tries in range(1, 4):
             with torch.inference_mode():
-                names = kernels_in_order(fn)
+                names, record = kernels_in_order(fn)
             if any("resize_argmax" in n for n in names):
                 break
         last = len(names) - 1
         prev = names[last - 1] if last > 0 else ""
         handover[name] = {"kernels": len(names),
                           "kernel_names": len(set(names)),
-                          "before_k1": prev[:160], "profiles": tries}
-        log("  %s: %d kernel launches of %d names (profile %d); K1 last: %s;"
-            " the kernel before it: %s"
-            % (name, len(names), len(set(names)), tries,
+                          "before_k1": prev[:160], "profiles": tries,
+                          "record": record}
+        log("  %s: %d %s of %d names (%s %d); K1 last: %s; before it: %s"
+            % (name, len(names),
+               "kernel launches" if record == "profiler" else "device ops",
+               len(set(names)), record, tries,
                "resize_argmax" in names[last], prev[:110]))
         check("resize_argmax" in names[last],
               "%s: the forward's last kernel is %s, not K1"
               % (name, names[last][:110]))
-        check(not re.search(r"copy|index_?select|gather|memcpy", prev,
-                            re.IGNORECASE),
+        check(not re.search(HANDOVER_COPY[record], prev, re.IGNORECASE),
               "%s: a cast, gather or copy runs before K1: %s"
               % (name, prev[:110]))
     log("  the fused bf16 forward runs %d kernel names (42 when the grid "
@@ -1998,28 +2119,28 @@ def phase_experiment(dev, clip, gt):
 def device_busy(fn):
     """(wall s, device busy s, K1 device s) of one ``fn()`` call under
     torch.profiler (host and card): the device's busy time is the sum of
-    its kernels' and copies' durations, K1's the resize_argmax kernel's.
-    The profiler's own cost lengthens the wall."""
+    its kernels' and copies' durations, K1's the resize_argmax kernel's;
+    both None when the profiler recorded no device time.  The profiler's
+    own cost lengthens the wall."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
-        if busy > 0:
-            k1 = sum(e.time_range.elapsed_us() for e in events
-                     if "resize_argmax" in e.name) / 1e6
-            return wall, busy, k1
-        log("  torch.profiler recorded no device time; profiling again")
-    check(False, "torch.profiler recorded no device time in 3 profiles")
+    wall = []
+
+    def body():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+
+    prof = cuda_profile(body, cpu=True)
+    if prof is None:
+        return wall[-1], None, None
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    k1 = sum(e.time_range.elapsed_us() for e in events
+             if "resize_argmax" in e.name) / 1e6
+    return wall[-1], busy, k1
 
 
 def phase_teacher(dev, clip):
@@ -2169,10 +2290,13 @@ def phase_teacher(dev, clip):
             alone = time.perf_counter() - t0
             p_wall, busy, k1_s = device_busy(lambda: label_fn(part))
             log("  labeler alone, %s: %d frames in %.3f s = %.1f frames/s; "
-                "under torch.profiler %.3f s, the device busy %.3f s (%.1f%%),"
-                " K1 %.5f s (%.2f%% of the device time)"
-                % (name, len(part), alone, len(part) / alone, p_wall, busy,
-                   100 * busy / p_wall, k1_s, 100 * k1_s / busy))
+                "under torch.profiler %.3f s, the device busy %s s (%s),"
+                " K1 %s s (%s of the device time)"
+                % (name, len(part), alone, len(part) / alone, p_wall,
+                   ms_text(busy, "%.3f"),
+                   ms_text(busy and 100 * busy / p_wall, "%.1f%%"),
+                   ms_text(k1_s, "%.5f"),
+                   ms_text(busy and 100 * k1_s / busy, "%.2f%%")))
             runs[name] = {
                 "frames": n_frames, "batch": batch, "chunks": chunks,
                 "k1_launches": launches["resize_argmax"], "wall_s": wall,
@@ -2183,7 +2307,8 @@ def phase_teacher(dev, clip):
                 "write_s": spans.get("labeler/write"),
                 "labeler_frames_per_s": len(part) / alone,
                 "profiled_wall_s": p_wall, "device_busy_s": busy,
-                "device_busy_share": busy / p_wall, "k1_device_s": k1_s}
+                "device_busy_share": busy and busy / p_wall,
+                "k1_device_s": k1_s}
             shutil.rmtree(dump, ignore_errors=True)
 
         # the f32 labeler: no K1 on the card, and the card against the CPU
@@ -2653,6 +2778,17 @@ WIDTH_LABEL_B = 4        # the labeler's batch of 257x513 frames
 WIDTH_LABEL_AGREE = 0.999   # tests/test_sharded_labeler.py's bar
 WIDTH_LOGIT_RTOL = 1e-3  # f32 logits, partitioned against whole
 DETERMINISM_ITERS = 6    # each form of the round, run twice to the bit
+# phase 13: the batched-weights multi-video round on phase 9's server
+MVB_ITERS = MV_ITERS     # its timed round, beside phase 9's serial round
+MVB_AGREE = 0.999        # masks against the serial round's
+MVB_BN_REL = 0.02        # BN moving statistics, of max(|value|, 1)
+# losses, per iteration: within the larger of MVB_SPREAD_X times the
+# serial round's own spread, read in the same run (the serial round
+# against itself under cuDNN's default algorithms, another summation order
+# of the same program, as the batched convolutions are), and MVB_LOSS_RTOL
+# of the serial loss
+MVB_SPREAD_X = 3
+MVB_LOSS_RTOL = 0.02
 # SHA-256 of cv2.imdecode's pixels of png_filtered(decode_probe_frame(), k)
 # for k = 3 (Average) and 4 (Paeth), recorded from OpenCV by
 # tests/test_torch_repaired_faults.py: the frame itself
@@ -2677,7 +2813,8 @@ def tree_max_abs_diff(a, b):
 def phase_multi_video(dev, clip):
     """Phase 9, part A: the multi-video server on the card (see the module
     docstring) -> (its record, the calibrated teacher, the clip's frames
-    at SHxSW), the last two for phase 11."""
+    at SHxSW, the server and its buffers), the teacher and frames for
+    phase 11, the server for phase 13."""
     import dataclasses
 
     import numpy as np
@@ -2803,16 +2940,19 @@ def phase_multi_video(dev, clip):
     single_s = time.perf_counter() - t0
     # the keep_mask round under a CUDA-only profile: the device's busy
     # share is its kernels' and copies' time over the round's wall
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    keep = []
+
+    def keep_round():
         t0 = time.perf_counter()
-        losses_keep = srv.train_round(iters=MV_KEEP_ITERS, keep_mask=True)
+        losses = srv.train_round(iters=MV_KEEP_ITERS, keep_mask=True)
         torch.cuda.synchronize()
-        keep_s = time.perf_counter() - t0
-    busy_s = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
-    if busy_s == 0:
-        log("  torch.profiler recorded no device time: busy share not "
-            "measured")
+        keep.append((losses, time.perf_counter() - t0))
+
+    prof = cuda_profile(keep_round, tries=1)   # a round trains: once only
+    losses_keep, keep_s = keep[0]
+    busy_s = 0 if prof is None else sum(
+        e.self_device_time_total for e in prof.key_averages()) / 1e6
+    keep_kernels = profile_lines(prof)
     check(losses.shape == (srv.V, MV_ITERS) and np.isfinite(losses).all(),
           "multi-video losses %s" % (losses.shape,))
     check(losses_keep.shape == (srv.V, MV_KEEP_ITERS)
@@ -2894,6 +3034,7 @@ def phase_multi_video(dev, clip):
            "single_ms_per_iteration": 1e3 * single_s / MV_ITERS,
            "keep_busy_s": busy_s,
            "busy_share": busy_s / keep_s if busy_s else None,
+           "keep_kernels": keep_kernels,
            "selected_shares": shares, "save_s": save_s,
            "first_losses": losses[:, 0].tolist(),
            "last_losses": losses_keep[:, -1].tolist(),
@@ -2911,7 +3052,305 @@ def phase_multi_video(dev, clip):
            else "%.1f%%" % (100 * rec["busy_share"]),
            ["%.4f" % x for x in shares], save_s,
            client_counts["resize_argmax"], MV_CLIENT_FRAMES))
-    return rec, teacher, rgb
+    log("  the keep_mask round's device time by kernel:\n    "
+        + "\n    ".join(keep_kernels))
+    state = {"srv": srv, "frames_V": frames_V, "labels_V": labels_V,
+             "n_valid": n_valid}
+    return rec, teacher, rgb, state
+
+
+def conv_layouts(fn):
+    """Run ``fn`` under a dispatch mode below the functorch transforms ->
+    {calls, backward calls, channels-last inputs, groups: count} of its
+    convolutions."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {"convolution": 0, "convolution_backward": 0,
+            "channels_last_inputs": 0, "groups": {}}
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name == "convolution":
+                seen["convolution"] += 1
+                x = args[0]
+                seen["channels_last_inputs"] += int(
+                    x.dim() == 4 and not x.is_contiguous()
+                    and x.is_contiguous(memory_format=torch.channels_last))
+                g = str(args[8])
+                seen["groups"][g] = seen["groups"].get(g, 0) + 1
+            elif name == "convolution_backward":
+                seen["convolution_backward"] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Mode():
+        fn()
+    return seen
+
+
+def phase_batched_round(dev, state, serial_rec):
+    """Phase 13: the batched-weights multi-video round
+    (make_vmapped_multi_video_round) on phase 9's server state, clip,
+    generators and V; ``serial_rec`` is phase 9's record."""
+    import dataclasses
+
+    import torch
+    from ams_tpu_torch.distill.train_step import make_distill_round
+    from ams_tpu_torch.ops import fused_resize_ce as frc
+    from ams_tpu_torch.parallel import (
+        make_multi_video_round,
+        make_vmapped_multi_video_round,
+    )
+
+    srv = state["srv"]
+    frames_V, labels_V = state["frames_V"], state["labels_V"]
+    n_valid = state["n_valid"]
+    V = srv.V
+
+    def gens():
+        return [torch.Generator(device=dev).manual_seed(1000 + j)
+                for j in range(V)]
+
+    def args(**over):
+        a = dict(params_V=srv.params_V, opt_V=srv.opt_V, frames_V=frames_V,
+                 labels_V=labels_V, n_valid_V=n_valid, gens_V=gens(), lr=LR,
+                 mask_V=srv.mask_V, class_mask_V=srv.class_mask_V)
+        a.update(over)
+        return a
+
+    # (a) agreement: the batched round against the serial round from the
+    # same state, generators and class masks
+    spec = dataclasses.replace(srv.spec, iters=MV_CHECK_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    serial = make_multi_video_round(spec, srv.mesh, with_class_mask=True)(
+        **args())
+    torch.cuda.synchronize()
+    serial_check_s = time.perf_counter() - t0
+    serial_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    batched = make_vmapped_multi_video_round(spec, with_class_mask=True)(
+        **args())
+    torch.cuda.synchronize()
+    batched_check_s = time.perf_counter() - t0
+    batched_peak = torch.cuda.max_memory_allocated(dev)
+    # the serial round's own spread: the same program under cuDNN's
+    # default (non-deterministic) algorithms, another summation order
+    torch.backends.cudnn.deterministic = False
+    try:
+        serial_nd = make_multi_video_round(spec, srv.mesh,
+                                           with_class_mask=True)(**args())
+    finally:
+        torch.backends.cudnn.deterministic = True
+    spread = [float((serial_nd[3][j] - serial[3][j]).abs().max())
+              for j in range(V)]
+    agree = []
+    loss_diff, loss_rel, loss_bar_use, param_diff, bn_rel = [], [], [], [], []
+    for j in range(V):
+        s_p, b_p = video_slice(serial[0], j), video_slice(batched[0], j)
+        train = [k for k in s_p if "moving_" not in k]
+        d = (batched[3][j] - serial[3][j]).abs()
+        loss_diff.append(float(d.max()))
+        loss_rel.append(float((d / serial[3][j].abs()).max()))
+        bar = torch.clamp(MVB_LOSS_RTOL * serial[3][j].abs(),
+                          min=MVB_SPREAD_X * spread[j])
+        loss_bar_use.append(float((d / bar).max()))
+        param_diff.append(max(float((b_p[k] - s_p[k]).abs().max())
+                              for k in train))
+        bn_rel.append(max(float(((b_p[k] - s_p[k]).abs()
+                                 / s_p[k].abs().clamp(min=1.0)).max())
+                          for k in s_p if "moving_" in k))
+        same = sum(int((batched[2][k][j] == serial[2][k][j]).sum())
+                   for k in serial[2])
+        agree.append(same / sum(serial[2][k][j].numel() for k in serial[2]))
+        check(loss_bar_use[-1] <= 1.0
+              and param_diff[-1] <= 2.05 * LR * MV_CHECK_ITERS
+              and bn_rel[-1] <= MVB_BN_REL and agree[-1] >= MVB_AGREE,
+              "video %d of the batched round disagrees with the serial "
+              "round: max |d loss| %.3g (%.3g of the loss, %.3g of its bar; "
+              "serial spread %.3g), max |d param| %.3g, BN %.3g of "
+              "max(|v|, 1), masks agree on %.6f"
+              % (j, loss_diff[-1], loss_rel[-1], loss_bar_use[-1], spread[j],
+                 param_diff[-1], bn_rel[-1], agree[-1]))
+    del serial, batched, serial_nd
+    log("  %d iterations, batched against serial from phase 9's state: max "
+        "|d loss| %s (of the loss %s, of the bar %s; the serial round "
+        "against itself under cuDNN's default algorithms %s), max |d param| "
+        "%s, BN statistics %s of max(|v|, 1), masks agree on %s; serial "
+        "%.2f s (peak %.2f GiB), batched %.2f s (peak %.2f GiB)"
+        % (MV_CHECK_ITERS, ["%.3g" % x for x in loss_diff],
+           ["%.3g" % x for x in loss_rel], ["%.3g" % x for x in loss_bar_use],
+           ["%.3g" % x for x in spread],
+           ["%.3g" % x for x in param_diff], ["%.3g" % x for x in bn_rel],
+           ["%.6f" % x for x in agree], serial_check_s, serial_peak / 2**30,
+           batched_check_s, batched_peak / 2**30))
+
+    # one iteration's convolutions, batched and single, below the
+    # transforms: one program for V videos, and the layout the rule gives
+    one = dataclasses.replace(srv.spec, iters=1)
+    batched_convs = conv_layouts(
+        lambda: make_vmapped_multi_video_round(one, with_class_mask=True)(
+            **args()))
+    single_convs = conv_layouts(lambda: make_distill_round(one)(
+        video_slice(srv.params_V, 0), video_slice(srv.opt_V, 0),
+        frames_V[0], labels_V[0], n_valid[0], gens()[0], LR,
+        video_slice(srv.mask_V, 0), class_mask=srv.class_mask_V[0]))
+    check(batched_convs["convolution"] == single_convs["convolution"]
+          and batched_convs["convolution_backward"]
+          == single_convs["convolution_backward"],
+          "one batched iteration made %s convolution calls, one single-"
+          "video iteration %s" % (batched_convs, single_convs))
+    log("  one iteration's convolutions: batched %s; single video %s"
+        % (json.dumps(batched_convs), json.dumps(single_convs)))
+
+    # (b) timing: the round over MVB_ITERS, then a keep_mask round under a
+    # CUDA-only profile for the device's busy share, as phase 9 measures
+    timed = make_vmapped_multi_video_round(
+        dataclasses.replace(srv.spec, iters=MVB_ITERS), with_class_mask=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = timed(**args())
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(out[3].shape == (V, MVB_ITERS) and bool(torch.isfinite(
+        out[3]).all()), "batched round losses %s" % (tuple(out[3].shape),))
+    keep = make_vmapped_multi_video_round(
+        dataclasses.replace(srv.spec, iters=MV_KEEP_ITERS), reselect=False,
+        with_class_mask=True)
+    keep(**args(params_V=out[0], opt_V=out[1], mask_V=out[2]))   # warm-up
+    torch.cuda.synchronize()
+    kept = []
+
+    def keep_round():
+        t0 = time.perf_counter()
+        got = keep(**args(params_V=out[0], opt_V=out[1], mask_V=out[2]))
+        torch.cuda.synchronize()
+        kept.append((got, time.perf_counter() - t0))
+
+    prof = cuda_profile(keep_round, tries=1)   # a round trains: once only
+    kept, keep_s = kept[0]
+    busy_s = 0 if prof is None else sum(
+        e.self_device_time_total for e in prof.key_averages()) / 1e6
+    keep_kernels = profile_lines(prof)
+    check(all(torch.equal(kept[2][k], out[2][k]) for k in out[2]),
+          "the batched keep_mask round changed the masks")
+    del out, kept
+
+    # (c) K2 under the batched round: the fused loss (no class masks: the
+    # fused path takes none), every counter set to 0 just before it
+    fused_spec = dataclasses.replace(srv.spec, iters=MV_CHECK_ITERS,
+                                     fused_loss=True)
+    fused_fn = make_vmapped_multi_video_round(fused_spec)
+    fargs = args()
+    del fargs["class_mask_V"]
+    torch.cuda.synchronize()
+    reset_counters()
+    fused = fused_fn(**fargs)
+    torch.cuda.synchronize()
+    fused_counts = launch_counts()
+    check(fused_counts["resize_ce_loss_grad"] == MV_CHECK_ITERS
+          and sum(fused_counts.values()) == MV_CHECK_ITERS,
+          "the batched round with the fused loss launched %s in %d "
+          "iterations (K2 once per iteration for all %d videos, nothing "
+          "else)" % (fused_counts, MV_CHECK_ITERS, V))
+    check(bool(torch.isfinite(fused[3]).all()), "fused batched losses")
+    del fused
+
+    # K2 under vmap at the round's shape against its plain version under
+    # vmap, at phase 2's bars; the grouped launch against V launches
+    n_sel = len(srv.class_indices)
+    gh, gw = -(-(SH + 1) // 16), -(-(SW + 1) // 16)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    grid = (torch.randn(V, MINI_BATCH, n_sel, gh, gw, generator=gen) * 3
+            ).to(dev)
+    labels = torch.randint(0, n_sel, (V, MINI_BATCH, SH, SW), generator=gen,
+                           dtype=torch.int32).to(dev)
+    weights = (torch.rand(V, MINI_BATCH, SH, SW, generator=gen) < 0.8
+               ).float().to(dev)
+
+    def vmapped(loss_fn):
+        return torch.func.vmap(torch.func.grad_and_value(
+            lambda g, lab, wt: loss_fn(g, lab, wt, (SH, SW))))(
+                grid, labels, weights)
+
+    n0 = frc.resize_ce_loss_grad.launches
+    k_grad, k_loss = vmapped(frc.fused_resize_ce)
+    torch.cuda.synchronize()
+    check(frc.resize_ce_loss_grad.launches == n0 + 1,
+          "K2 under vmap launched %d times for %d videos"
+          % (frc.resize_ce_loss_grad.launches - n0, V))
+    p_grad, p_loss = vmapped(frc.resize_ce_plain)
+    k_loss_err = [float((k_loss[j] - p_loss[j]).abs()) for j in range(V)]
+    k_grad_err = float((k_grad - p_grad).abs().max())
+    check(all(e <= 1e-5 * abs(float(p_loss[j]))
+              for j, e in enumerate(k_loss_err))
+          and bool(torch.allclose(k_grad, p_grad, rtol=1e-4, atol=1e-6)),
+          "K2 under vmap against its plain version: loss errors %s, grad "
+          "max abs err %g" % (k_loss_err, k_grad_err))
+    flat = (grid.flatten(0, 1), labels.flatten(0, 1), weights.flatten(0, 1),
+            (SH, SW))
+    g_loss, g_total, g_grad = frc.resize_ce_loss_grad(*flat, groups=V)
+    singles = [frc.resize_ce_loss_grad(grid[j], labels[j], weights[j],
+                                       (SH, SW)) for j in range(V)]
+    grouped_bitwise = all(
+        torch.equal(g_loss[j], singles[j][0])
+        and torch.equal(g_total[j], singles[j][1])
+        and torch.equal(g_grad[j * MINI_BATCH:(j + 1) * MINI_BATCH],
+                        singles[j][2]) for j in range(V))
+    check(grouped_bitwise, "K2's grouped launch differs from %d launches"
+          % V)
+    grouped_ms = cuda_ms(lambda: frc.resize_ce_loss_grad(*flat, groups=V),
+                         20)
+    separate_ms = cuda_ms(lambda: [frc.resize_ce_loss_grad(
+        grid[j], labels[j], weights[j], (SH, SW)) for j in range(V)], 20)
+
+    rec = {"videos": V, "iters": MVB_ITERS, "round_s": round_s,
+           "ms_per_video_iteration": 1e3 * round_s / (V * MVB_ITERS),
+           "serial_round_s": serial_rec["round_s"],
+           "serial_ms_per_video_iteration":
+               serial_rec["ms_per_video_iteration"],
+           "keep_round_s": keep_s, "keep_busy_s": busy_s,
+           "busy_share": busy_s / keep_s if busy_s else None,
+           "serial_busy_share": serial_rec["busy_share"],
+           "keep_kernels": keep_kernels,
+           "peak_bytes": peak, "check_peak_bytes": batched_peak,
+           "serial_check_peak_bytes": serial_peak,
+           "check_s": batched_check_s, "serial_check_s": serial_check_s,
+           "check_loss_diff": loss_diff, "check_loss_rel": loss_rel,
+           "check_loss_bar_use": loss_bar_use,
+           "serial_spread_loss_diff": spread,
+           "check_param_diff": param_diff,
+           "check_bn_rel": bn_rel, "check_mask_agree": agree,
+           "convs_batched": batched_convs, "convs_single": single_convs,
+           "fused_launches": fused_counts,
+           "k2_vmapped_loss_abs_err": k_loss_err,
+           "k2_vmapped_grad_max_abs_err": k_grad_err,
+           "k2_grouped_bitwise": grouped_bitwise,
+           "k2_grouped_ms": grouped_ms, "k2_separate_ms": separate_ms}
+    log("  %d iterations for %d videos in %.2f s: %.2f ms per video-"
+        "iteration (phase 9's serial round: %.2f s, %.2f ms); peak %.2f GiB;"
+        " keep_mask round of %d in %.2f s under a CUDA profile, the device "
+        "busy %.2f s of it (%s; serial %s); K2 %d launches in %d fused "
+        "iterations, under vmap against plain: loss errors %s, grad %.3g; "
+        "grouped launch %.4f ms against %d launches %.4f ms, bitwise %s"
+        % (MVB_ITERS, V, round_s, rec["ms_per_video_iteration"],
+           serial_rec["round_s"], serial_rec["ms_per_video_iteration"],
+           peak / 2**30, MV_KEEP_ITERS, keep_s, busy_s,
+           "not measured" if not busy_s
+           else "%.1f%%" % (100 * rec["busy_share"]),
+           "not measured" if not serial_rec["busy_share"]
+           else "%.1f%%" % (100 * serial_rec["busy_share"]),
+           fused_counts["resize_ce_loss_grad"], MV_CHECK_ITERS,
+           ["%.3g" % x for x in k_loss_err], k_grad_err, grouped_ms, V,
+           separate_ms, grouped_bitwise))
+    log("  the batched keep_mask round's device time by kernel:\n    "
+        + "\n    ".join(keep_kernels))
+    return rec
 
 
 def dp_spec(case, idx):
@@ -4267,7 +4706,8 @@ def main() -> int:
             "NCCL rank, %d iterations)" % (len(MV_VIDEOS), SH, MINI_BATCH,
                                            MV_ITERS, MV_KEEP_ITERS,
                                            DP_WORLD, DP_ITERS))
-        multi_video, teacher, clip_rgb = phase_multi_video(dev, clip)
+        multi_video, teacher, clip_rgb, mv_state = phase_multi_video(dev,
+                                                                     clip)
     finally:
         shutil.rmtree(clip_root, ignore_errors=True)
     data_parallel = phase_data_parallel(dev)
@@ -4294,6 +4734,13 @@ def main() -> int:
         orbax_rec = phase_orbax(dev, clip, gt)
     finally:
         shutil.rmtree(clip_root, ignore_errors=True)
+
+    log("phase 13: the batched-weights multi-video round "
+        "(make_vmapped_multi_video_round) on phase 9's server, %d videos, "
+        "%d iterations, beside phase 9's serial round; K2 under it"
+        % (len(MV_VIDEOS), MVB_ITERS))
+    batched_round = phase_batched_round(dev, mv_state, multi_video)
+    del mv_state
 
     main_case = cases[0]
     kernels = [{
@@ -4338,7 +4785,10 @@ def main() -> int:
             "width_parallel_launches_per_rank": {
                 case: r["launches_per_rank"]["resize_ce_" + part]
                 for case, r in width["ranks"].items()},
-            **({"tf32_round_launches": rest["tf32_round"]["launches"]}
+            **({"tf32_round_launches": rest["tf32_round"]["launches"],
+                "vmapped_round_launches": batched_round["fused_launches"][
+                    "resize_ce_loss_grad"],
+                "vmapped_round_iterations": MV_CHECK_ITERS}
                if part == "loss_grad" else {}),
             "max_abs_err": max(c[key] for c in ce_cases),
             "ms": ce_main[part + "_ms"],
@@ -4401,16 +4851,17 @@ def main() -> int:
     log("server device ms per iteration: fused loss %.3f, gather loss %.3f"
         % (per_iter[True], per_iter[False]))
     for c in cases:
-        log("resize_argmax %s %s: %.4f ms per call (%.4f on the device; "
-            "bound %.4f); plain %.4f / %.4f, library %.4f / %.4f; plan %s"
-            % (c["case"], c["shape"], c["kernel_ms"], c["device_ms"],
-               c["bound_ms"], c["plain_ms"], c["plain_device_ms"],
-               c["library_ms"], c["library_device_ms"], c["plan"]))
+        log("resize_argmax %s %s: %.4f ms per call (%s on the device; "
+            "bound %.4f); plain %.4f / %s, library %.4f / %s; plan %s"
+            % (c["case"], c["shape"], c["kernel_ms"], ms_text(c["device_ms"]),
+               c["bound_ms"], c["plain_ms"], ms_text(c["plain_device_ms"]),
+               c["library_ms"], ms_text(c["library_device_ms"]), c["plan"]))
     for c in ce_cases:
         log("resize_ce %s %s: loss %.4f ms, loss+grad %.4f ms per call "
-            "(%.4f, %.4f on the device; bounds %.4f, %.4f); plan %s"
+            "(%s, %s on the device; bounds %.4f, %.4f); plan %s"
             % (c["case"], c["shape"], c["loss_ms"], c["loss_grad_ms"],
-               c["loss_device_ms"], c["loss_grad_device_ms"],
+               ms_text(c["loss_device_ms"]),
+               ms_text(c["loss_grad_device_ms"]),
                c["loss_bound_ms"], c["loss_grad_bound_ms"], c["plan"]))
     for mode, r in experiment.items():
         log("experiment %s: %.2f s wall; server loop %.2f s (decode %.1f%%), "
@@ -4427,22 +4878,24 @@ def main() -> int:
         % (experiment["early"]["miou_mean"],
            experiment["pretrained"]["miou_mean"]))
     for c in teacher_cases:
-        log("resize_argmax %s %s %s: %.4f ms per call (%.4f on the device; "
-            "bound %.4f, %s); plain %.4f / %.4f, library %.4f / %.4f; "
+        log("resize_argmax %s %s %s: %.4f ms per call (%s on the device; "
+            "bound %.4f, %s); plain %.4f / %s, library %.4f / %s; "
             "mismatches %d, off ties %d"
             % (c["case"], c["shape"], c["dtype"], c["kernel_ms"],
-               c["device_ms"], c["bound_ms"], c["bound_by"], c["plain_ms"],
-               c["plain_device_ms"], c["library_ms"], c["library_device_ms"],
+               ms_text(c["device_ms"]), c["bound_ms"], c["bound_by"],
+               c["plain_ms"], ms_text(c["plain_device_ms"]), c["library_ms"],
+               ms_text(c["library_device_ms"]),
                c["mismatches"], c["mismatches_off_ties"]))
     for name, r in labeler_runs.items():
         log("labeler %s: batch %d, %d chunks, K1 %d launches; %.2f frames/s "
             "end to end (read %.2f s, predict %.2f s, write %.2f s); the "
-            "labeler alone %.1f frames/s, device busy %.1f%% under the "
+            "labeler alone %.1f frames/s, device busy %s under the "
             "profiler" % (name, r["batch"], r["chunks"], r["k1_launches"],
                           r["end_to_end_frames_per_s"], r["read_s"] or 0,
                           r["predict_s"] or 0, r["write_s"] or 0,
                           r["labeler_frames_per_s"],
-                          100 * r["device_busy_share"]))
+                          ms_text(r["device_busy_share"] and
+                                  100 * r["device_busy_share"], "%.1f%%")))
     log("teacher checks: %s" % json.dumps(teacher_checks))
     for name, r in live_cli["edges"].items():
         log("live edge %s (%s): %.1f frames/s while streaming, %.1f end "
@@ -4477,6 +4930,7 @@ def main() -> int:
     log("width partitioning: %s" % json.dumps(width))
     log("Orbax checkpoints and the validation gate: %s"
         % json.dumps(orbax_rec))
+    log("batched multi-video round: %s" % json.dumps(batched_round))
     log("wall-clock: %.1f s" % (time.perf_counter() - t_start))
     log(nvidia_smi())
     log(json.dumps({"kernels": kernels}))

@@ -12,7 +12,9 @@ and round against JAX's ``model_parallelism=2``.
 Gates:
 - the multi-video round is V independent single-video port rounds to the
   bit (V=2 on two entries, V=4 on two: two videos per entry), and the
-  "vmapped" round is the serial rounds to the bit, with class masks;
+  batched-weights round is the serial rounds to the bars of
+  tests/test_vmapped_round.py, with class masks (its own gates are in
+  tests/test_torch_vmapped_round.py);
 - against JAX's ``make_multi_video_round(with_class_mask=True)`` on its
   virtual CPU mesh (V=2, exps 25 and 12, h=32, batch 2, two full_model
   iterations from warm Adam slots, ``n_valid=1`` so that both packages
@@ -158,12 +160,12 @@ def test_stack_videos_matches_jax():
 # ----------------------------------------------------- multi-video round
 
 
-def _videos(V, seed=0):
+def _videos(V, seed=0, cap=CAP, hw=(H, W)):
     rng = np.random.RandomState(seed)
     params = [init_student_params(s, device="cpu") for s in range(V)]
-    frames = [torch.from_numpy(rng.randint(0, 256, (CAP, H, W, 3))
+    frames = [torch.from_numpy(rng.randint(0, 256, (cap, *hw, 3))
                                .astype(np.uint8)) for _ in range(V)]
-    labels = [torch.from_numpy(rng.randint(0, 19, (CAP, H, W))
+    labels = [torch.from_numpy(rng.randint(0, 19, (cap, *hw))
                                .astype(np.uint8)) for _ in range(V)]
     return params, frames, labels
 
@@ -216,19 +218,24 @@ def test_multi_video_round_is_independent_rounds(V):
 
 @pytest.mark.parametrize("strategy", ["full_model", "coord_desc_auto"])
 def test_vmapped_round_equals_serial_with_class_masks(strategy):
-    """The counterparts of test_vmapped_round.py:45 and :94: each video's
-    result is its serial round's, and a class-mask row narrows a video's
-    loss to its own subset."""
-    V = 2
+    """The counterparts of test_vmapped_round.py:45 and :94, at its frame
+    size (4 frames of 64x128): each video's result is its serial round's
+    to that test's bars, since the batched round's convolutions sum in
+    another order (losses within 5%, coord_desc_auto's masks on 0.999 of
+    the coordinates and 0.9 of each tensor's, the logits' biases within
+    5e-3), every coordinate within 2.05 lr per iteration, the Adam step
+    counts exact; and a class-mask row narrows a video's loss to its own
+    subset."""
+    V, cap = 2, 4
     spec = tts.DistillSpec(iters=2, batch_size=BATCH, num_classes=19,
                            class_indices=CI, strategy=strategy,
                            coord_frac=0.1, compute_dtype="bfloat16")
     cm = torch.tensor([[1, 1, 1, 0, 0, 0], [1, 1, 1, 1, 1, 1]],
                       dtype=torch.float32)
-    params, frames, labels = _videos(V, seed=1)
+    params, frames, labels = _videos(V, seed=1, cap=cap, hw=(64, 128))
     base = tts.make_distill_round(spec)
     reselect = strategy == "coord_desc_auto"
-    ref = [base(p, adam_init(tts.split_params(p)[0]), f, l, CAP, g, LR,
+    ref = [base(p, adam_init(tts.split_params(p)[0]), f, l, cap, g, LR,
                 tts.all_true_mask(p), reselect=reselect, class_mask=cm[j])
            for j, (p, f, l, g) in enumerate(zip(params, frames, labels,
                                                 _gens(V)))]
@@ -237,18 +244,32 @@ def test_vmapped_round_equals_serial_with_class_masks(strategy):
              tparallel.stack_videos([adam_init(tts.split_params(p)[0])
                                      for p in params]),
              torch.stack(frames), torch.stack(labels),
-             torch.full((V,), CAP), _gens(V), LR,
+             torch.full((V,), cap), _gens(V), LR,
              tparallel.stack_videos([tts.all_true_mask(p) for p in params]),
              cm)
-    for j in range(V):
-        _assert_video_equal(out, j, ref[j])
+    for j, (p_s, o_s, m_s, loss_s) in enumerate(ref):
+        np.testing.assert_allclose(out[3][j].numpy(), loss_s.numpy(),
+                                   rtol=0.05, atol=0.05)
+        assert torch.equal(out[1].step[j], o_s.step)
+        agree = total = 0
+        for k in m_s:
+            a, b = out[2][k][j], m_s[k]
+            agree += int((a == b).sum())
+            total += a.numel()
+            assert float((a == b).float().mean()) > 0.9, k
+            d = float((out[0][k][j] - p_s[k]).abs().max())
+            assert d <= 2.05 * LR * spec.iters, (k, d)
+        assert agree / total > 0.999, (j, agree / total)
+        np.testing.assert_allclose(
+            out[0]["logits/semantic/biases"][j].numpy(),
+            p_s["logits/semantic/biases"].numpy(), rtol=0.05, atol=5e-3)
     # video 0's narrowed loss is the loss of a round over its own subset
     sub = tts.make_distill_round(tts.DistillSpec(
         iters=2, batch_size=BATCH, num_classes=19, class_indices=CI[:3],
         strategy=strategy, coord_frac=0.1, compute_dtype="bfloat16"))
     p = params[0]
     _, _, _, loss_sub = sub(p, adam_init(tts.split_params(p)[0]), frames[0],
-                            labels[0], CAP, _gens(1)[0], LR,
+                            labels[0], cap, _gens(1)[0], LR,
                             tts.all_true_mask(p), reselect=reselect)
     np.testing.assert_allclose(out[3][0].numpy(), loss_sub.numpy(),
                                rtol=0.02, atol=0.02)

@@ -365,7 +365,7 @@ def test_autograd_node_launches_once_and_its_backward_none(monkeypatch):
     seed, b, gh, gw, nc, h, w = CASES["ragged"]
     grid, labels, weights = _case(seed, b, gh, gw, nc, h, w)
 
-    def fake_launch(grid_t, lab, wt, out_hw, want_grad):
+    def fake_launch(grid_t, lab, wt, out_hw, want_grad, groups=None):
         loss, total, grad = emulate_kernel(grid_t.detach().numpy(),
                                            lab.numpy(), wt.numpy(), out_hw)
         f32 = functools.partial(torch.tensor, dtype=torch.float32)
@@ -376,7 +376,7 @@ def test_autograd_node_launches_once_and_its_backward_none(monkeypatch):
     g.requires_grad_(True)
     lab, wt = torch.from_numpy(labels), torch.from_numpy(weights)
     n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
-    loss = frc._ResizeCE.apply(g, lab, wt, (h, w))
+    loss, _, _ = frc._ResizeCE.apply(g, lab, wt, (h, w))
     assert (frc.resize_ce_loss.launches,
             frc.resize_ce_loss_grad.launches) == (n0[0], n0[1] + 1)
     (got,) = torch.autograd.grad(loss * 3.0, g)
