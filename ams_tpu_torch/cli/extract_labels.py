@@ -15,6 +15,7 @@ Example (on the card; add ``--device cpu`` to run on the host):
 import argparse
 
 from ams_tpu_torch.runtime.labeler import extract_labels
+from ams_tpu_torch.utils.trace import GLOBAL_TIMER
 
 
 def build_parser():
@@ -48,6 +49,8 @@ def main(argv=None):
                        height=args.height, batch=args.batch,
                        max_frames=args.max_frames, device=device)
     print("There were %d frames extracted" % n)
+    if GLOBAL_TIMER.counts:
+        print(GLOBAL_TIMER.summary())
 
 
 if __name__ == "__main__":

@@ -87,8 +87,12 @@ def _make_predict(compute_dtype: str, device):
 
     def predict(params, frames: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
-            ids = forward(params, torch.from_numpy(frames).to(device))
-            return ids.cpu().numpy()
+            with GLOBAL_TIMER.span("labeler/upload"):
+                x = torch.from_numpy(frames).to(device)
+            with GLOBAL_TIMER.span("labeler/forward"):
+                ids = forward(params, x)
+            with GLOBAL_TIMER.span("labeler/download"):
+                return ids.cpu().numpy()
     return predict
 
 
@@ -98,20 +102,23 @@ def _predict_fixed_batch(predict, params, arr: np.ndarray,
     ``batch`` frames: the tail chunk is padded by repeating its last frame
     and the padded rows are sliced off, so every call has one shape (as
     the JAX package does for its one compiled program).  An empty draw
-    makes no call."""
+    makes no call.  Spans: ``labeler/chunk`` per call, ``labeler/join``
+    around the chunks' concatenation."""
     n = arr.shape[0]
     outs = []
     for s in range(0, n, batch):
-        chunk = arr[s:s + batch]
-        pad = batch - chunk.shape[0]
-        if pad:
-            chunk = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], pad, axis=0)])
-        preds = np.asarray(predict(params, chunk))
-        outs.append(preds[:batch - pad] if pad else preds)
+        with GLOBAL_TIMER.span("labeler/chunk"):
+            chunk = arr[s:s + batch]
+            pad = batch - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], pad, axis=0)])
+            preds = np.asarray(predict(params, chunk))
+            outs.append(preds[:batch - pad] if pad else preds)
     if not outs:
         return np.empty((0, arr.shape[1], arr.shape[2]), np.uint8)
-    return np.concatenate(outs)
+    with GLOBAL_TIMER.span("labeler/join"):
+        return np.concatenate(outs)
 
 
 def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
@@ -125,22 +132,29 @@ def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
     ``batch=None`` resolves from the first call's (unpadded) frame height
     by ``auto_batch`` and then stays.  Without a checkpoint the teacher is
     seeded synthetic (for tests and demos); a named but missing path
-    raises."""
+    raises.  Spans: ``labeler/label`` per call, inside it
+    ``labeler/pad``, per chunk ``labeler/chunk`` (``labeler/upload``,
+    ``labeler/forward``: the teacher and K1 enqueued,
+    ``labeler/download``), ``labeler/join`` and ``labeler/unpad``."""
     dev = resolve_device(device)
     params = _load_teacher_params(teacher_checkpoint, seed, dev)
     predict = _make_predict(compute_dtype, dev)
     resolved = {"batch": batch}
 
     def label(frames: np.ndarray) -> np.ndarray:
-        frames = np.asarray(frames, np.uint8)
-        if resolved["batch"] is None:
-            # from the UNPADDED height: the +1 pad would tip the exact
-            # thresholds (320, 640) into the next-smaller batch
-            resolved["batch"] = auto_batch(int(frames.shape[1]))
-        arr = np.pad(frames, ((0, 0), (1, 0), (1, 0), (0, 0)),
-                     mode="symmetric")
-        preds = _predict_fixed_batch(predict, params, arr, resolved["batch"])
-        return preds[:, 1:, 1:].astype(np.uint8)
+        with GLOBAL_TIMER.span("labeler/label"):
+            frames = np.asarray(frames, np.uint8)
+            if resolved["batch"] is None:
+                # from the UNPADDED height: the +1 pad would tip the exact
+                # thresholds (320, 640) into the next-smaller batch
+                resolved["batch"] = auto_batch(int(frames.shape[1]))
+            with GLOBAL_TIMER.span("labeler/pad"):
+                arr = np.pad(frames, ((0, 0), (1, 0), (1, 0), (0, 0)),
+                             mode="symmetric")
+            preds = _predict_fixed_batch(predict, params, arr,
+                                         resolved["batch"])
+            with GLOBAL_TIMER.span("labeler/unpad"):
+                return preds[:, 1:, 1:].astype(np.uint8)
 
     return label
 

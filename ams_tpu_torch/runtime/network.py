@@ -72,6 +72,7 @@ from ams_tpu_torch.utils.metrics import (
     confusion_matrix_per_frame,
 )
 from ams_tpu_torch.utils.platform import resolve_device
+from ams_tpu_torch.utils.trace import GLOBAL_TIMER
 
 
 class SemanticNetwork:
@@ -206,18 +207,28 @@ class SemanticNetwork:
     # ------------------------------------------------------------------ API
 
     def predict_input(self, frames):
-        """(B, H, W, 3) frames -> (B, H, W) int32 ids in the reduced space."""
+        """(B, H, W, 3) frames -> (B, H, W) int32 ids in the reduced space.
+
+        Spans: ``network/predict_input`` (the request), inside it
+        ``network/stage`` (the upload), ``network/forward`` (the forward
+        and K1 enqueued) and ``network/download`` (the wait for the
+        device and the copy of the ids)."""
         frames = np.asarray(frames)
-        with self.process_lock, torch.inference_mode():
-            staged = self._stage_frames(frames)
-            if self.frozen:
-                preds = self._fast(self.params, staged, self._class_indices)
-            else:
-                preds, _, _ = self._predict(
-                    self.params, staged,
-                    torch.zeros(frames.shape[:-1], dtype=torch.long,
-                                device=self.device))
-            labels_ = preds.cpu().numpy()
+        with GLOBAL_TIMER.span("network/predict_input"), \
+                self.process_lock, torch.inference_mode():
+            with GLOBAL_TIMER.span("network/stage"):
+                staged = self._stage_frames(frames)
+            with GLOBAL_TIMER.span("network/forward"):
+                if self.frozen:
+                    preds = self._fast(self.params, staged,
+                                       self._class_indices)
+                else:
+                    preds, _, _ = self._predict(
+                        self.params, staged,
+                        torch.zeros(frames.shape[:-1], dtype=torch.long,
+                                    device=self.device))
+            with GLOBAL_TIMER.span("network/download"):
+                labels_ = preds.cpu().numpy()
         if labels_.shape != frames.shape[:-1]:
             raise RuntimeError("prediction shape %s for frames %s"
                                % (labels_.shape, frames.shape))

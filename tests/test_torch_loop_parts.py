@@ -36,7 +36,7 @@ from ams_tpu_torch.runtime.config import RunConfig, get_save_dir
 from ams_tpu_torch.runtime.modes import run_experiment
 from ams_tpu_torch.runtime.network import SemanticNetwork
 from ams_tpu_torch.stream import controllers, uplink
-from ams_tpu_torch.utils.trace import annotate, profile_trace
+from ams_tpu_torch.utils.trace import GLOBAL_TIMER, SPAN_PID, profile_trace
 
 FAKE = os.path.join(os.path.dirname(__file__), "fake_ffmpeg.py")
 
@@ -316,14 +316,21 @@ def test_horizon_mode_and_cli_on_the_cpu(tiny, capsys):
 # ------------------------------------------------------- trace and config
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """The Chrome trace holds the block's GLOBAL_TIMER span on the spans'
+    own track, in the file's time base: it contains the aten op run
+    inside it."""
     with profile_trace(str(tmp_path / "trace")):
-        with annotate("ams/probe"):
-            torch.ones(8).sum()
+        with GLOBAL_TIMER.span("ams/probe"):
+            float(torch.ones(8).sum())
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "ams/probe" for e in events)
+    probe = [e for e in events if e.get("name") == "ams/probe"]
+    assert len(probe) == 1 and probe[0]["pid"] == SPAN_PID
+    op = next(e for e in events if e.get("name") == "aten::sum")
+    assert probe[0]["ts"] <= op["ts"]
+    assert op["ts"] + op["dur"] <= probe[0]["ts"] + probe[0]["dur"]
     with profile_trace(""):
         pass
 
