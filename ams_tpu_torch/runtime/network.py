@@ -131,6 +131,7 @@ class SemanticNetwork:
 
         self.process_lock = threading.Lock()
         self._round_cache = {}
+        self._pinned_blocks = set()     # host blocks _download_ids was handed
 
         # --- parameters -------------------------------------------------
         if isinstance(meta_dir, dict):
@@ -204,6 +205,32 @@ class SemanticNetwork:
         return torch.from_numpy(
             np.ascontiguousarray(labels).astype(np.int64)).to(self.device)
 
+    def _download_ids(self, preds: torch.Tensor) -> np.ndarray:
+        """The ids home, as a numpy array that owns its memory.
+
+        From a CUDA device they land in a page-locked block of PyTorch's
+        caching host allocator, filled by one blocking copy.  The array
+        holds the block for as long as the caller keeps it; dropped, the
+        block goes back to the allocator, which hands it, resident and
+        registered with CUDA, to the next request of its size.  A
+        blocking copy records no event on the block, so it is free as
+        soon as the array dies.  One buffer reused for every answer
+        would overwrite the answers callers keep.
+
+        Counts ``network/pinned_download`` for each such download and
+        ``network/pinned_fresh`` for each block this network had not been
+        handed before (a new ``cudaHostAlloc``).  On the CPU the answer is
+        ``preds``' own memory.  Call under ``process_lock``."""
+        if preds.device.type != "cuda":
+            return preds.cpu().numpy()
+        host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
+        host.copy_(preds)
+        GLOBAL_TIMER.count("network/pinned_download")
+        if host.data_ptr() not in self._pinned_blocks:
+            self._pinned_blocks.add(host.data_ptr())
+            GLOBAL_TIMER.count("network/pinned_fresh")
+        return host.numpy()
+
     # ------------------------------------------------------------------ API
 
     def predict_input(self, frames):
@@ -212,7 +239,7 @@ class SemanticNetwork:
         Spans: ``network/predict_input`` (the request), inside it
         ``network/stage`` (the upload), ``network/forward`` (the forward
         and K1 enqueued) and ``network/download`` (the wait for the
-        device and the copy of the ids)."""
+        device and the copy of the ids, ``_download_ids``)."""
         frames = np.asarray(frames)
         with GLOBAL_TIMER.span("network/predict_input"), \
                 self.process_lock, torch.inference_mode():
@@ -228,7 +255,7 @@ class SemanticNetwork:
                         torch.zeros(frames.shape[:-1], dtype=torch.long,
                                     device=self.device))
             with GLOBAL_TIMER.span("network/download"):
-                labels_ = preds.cpu().numpy()
+                labels_ = self._download_ids(preds)
         if labels_.shape != frames.shape[:-1]:
             raise RuntimeError("prediction shape %s for frames %s"
                                % (labels_.shape, frames.shape))
@@ -240,7 +267,7 @@ class SemanticNetwork:
             preds, cm, loss = self._predict(
                 self.params, self._stage_frames(frames),
                 self._stage_labels(labels_teacher))
-            labels_student = preds.cpu().numpy()
+            labels_student = self._download_ids(preds)
             conf_mat_ = cm.cpu().numpy()
             loss = float(loss)
         iou_ = calculate_miou(conf_mat_, nan=True)
@@ -269,7 +296,7 @@ class SemanticNetwork:
             preds, cm_f, loss_f = self._predict_seq(
                 self.params, self._stage_frames(frames),
                 self._stage_labels(labels_teacher))
-            labels_student = preds.cpu().numpy()
+            labels_student = self._download_ids(preds)
             conf_mats = cm_f.cpu().numpy()
             losses = loss_f.cpu().numpy()
         mious = np.array([np.nanmean(calculate_miou(c, nan=True))

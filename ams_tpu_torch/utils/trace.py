@@ -18,6 +18,11 @@ closes:
 - its request: the id of the span with no span around it that it lies
   in (such a span is its own request).
 
+``PhaseTimer.count(name)`` counts an event that has no length: it adds
+one to ``counts``, and while a profile is active it also appends a
+zero-length ``SpanRecord`` at that instant, inside the span open on the
+thread, so that the benchmark's readers find it in the traced window.
+
 Records stay in memory until read (``perfbench/lib/spans.py`` reads
 them) or written by ``profile_trace``.  A span puts no event into the
 profile: a user annotation of a CUDA profile can appear as a device
@@ -82,6 +87,14 @@ class PhaseTimer:
             self.totals[name] += seconds
             self.counts[name] += 1
 
+    def _state(self):
+        """This thread's stack of open spans and its native id."""
+        try:
+            return self._local.state
+        except AttributeError:
+            self._local.state = [], threading.get_native_id()
+            return self._local.state
+
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[None]:
         if not _recording():
@@ -91,10 +104,7 @@ class PhaseTimer:
             finally:
                 self._add(name, time.perf_counter() - t0)
             return
-        try:
-            stack, thread = self._local.state
-        except AttributeError:
-            stack, thread = self._local.state = [], threading.get_native_id()
+        stack, thread = self._state()
         ident = next(self._ids)
         parent, request = stack[-1] if stack else (-1, ident)
         stack.append((ident, request))
@@ -107,6 +117,20 @@ class PhaseTimer:
             self.records.append(SpanRecord(name, start, end, ident, parent,
                                            request, thread))
             self._add(name, (end - start) / 1e9)
+
+    def count(self, name: str) -> None:
+        """One event called ``name``: one more in ``counts``, and while a
+        profile is active a zero-length record (module docstring)."""
+        with self._lock:
+            self.counts[name] += 1
+        if not _recording():
+            return
+        stack, thread = self._state()
+        ident = next(self._ids)
+        parent, request = stack[-1] if stack else (-1, ident)
+        now = time.time_ns()
+        self.records.append(SpanRecord(name, now, now, ident, parent,
+                                       request, thread))
 
     def summary(self) -> str:
         lines = ["%-28s %8s %10s %10s" % ("phase", "count", "total_s",

@@ -173,6 +173,20 @@ def test_unfolded_save_and_visualisation_match(case, tmp_path):
             np.testing.assert_array_equal(x, y)
 
 
+def test_an_answer_outlives_the_next_request(case):
+    """A caller keeps answers (a video's ids, a benchmark's sample): the
+    next request must not write into the memory of the last one."""
+    params, _, _, frames, _ = case
+    tnet = TorchNetwork(dict(params), class_weights_exp=configs.class_weights(
+        EXP), height=64, frozen=True, device="cpu")
+    first = tnet.predict_input(frames[:1])
+    kept = first.copy()
+    second = tnet.predict_input(frames[1:2][:, ::-1, ::-1])
+    assert not np.array_equal(second, kept)
+    np.testing.assert_array_equal(first, kept)
+    assert first.dtype == second.dtype == np.int32
+
+
 def test_client_rejects_what_is_not_ported(case, tmp_path):
     params = case[0]
     kw = dict(class_weights_exp=configs.class_weights(EXP), height=64,

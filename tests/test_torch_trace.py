@@ -1,6 +1,6 @@
 """The port's span recorder (``ams_tpu_torch/utils/trace.py``), the spans
 of ``SemanticNetwork.predict_input`` and of the teacher labeler, and the
-benchmark's readers of them (``perfbench/lib/spans.py`` and the two
+benchmark's readers of them (``perfbench/lib/spans.py`` and the
 ``perfbench/layer_metrics`` files that read the program's spans), on the
 CPU."""
 
@@ -31,7 +31,8 @@ from perfbench.lib import spans  # noqa: E402
 from perfbench.lib.trace import Trace  # noqa: E402
 
 SPAN_READERS = ("label_idle_host_ms_per_call",
-                "client_dispatch_ms_per_batch")
+                "client_dispatch_ms_per_batch",
+                "client_pinned_reuse_pct")
 
 
 @pytest.fixture(autouse=True)
@@ -224,6 +225,27 @@ def test_reset_forgets_records_and_ids_stay_unique():
     assert t.records[0].id != first and t.counts == {"a": 1}
 
 
+def test_count_adds_always_and_records_only_while_recording():
+    t = PhaseTimer()
+    t.count("c")
+    with t.span("a"):
+        t.count("c")
+    assert t.counts == {"a": 1, "c": 2} and t.records == []
+    assert "c" not in t.totals
+    with cpu_profile():
+        t.count("c")
+        with t.span("a"):
+            t.count("c")
+    assert t.counts == {"a": 2, "c": 4}
+    first, a, inner = by_opening(t.records)
+    assert (first.name, a.name, inner.name) == ("c", "a", "c")
+    assert first.start_ns == first.end_ns and first.parent == -1 \
+        and first.request == first.id
+    assert inner.start_ns == inner.end_ns
+    assert a.start_ns <= inner.start_ns <= a.end_ns
+    assert inner.parent == a.id and inner.request == a.id
+
+
 def test_predict_input_spans(global_timer):
     cw = np.zeros(19, np.float32)
     cw[[0, 1, 2, 10]] = 1.0
@@ -317,6 +339,8 @@ def test_reader_returns_none_without_records(name, global_timer):
     ("label_idle_host_ms_per_call", 200 / 2 / 1e6),
     # forward [2030, 2080) less its child [2040, 2065)
     ("client_dispatch_ms_per_batch", 25 / 1e6),
+    # one fresh block among four pinned downloads
+    ("client_pinned_reuse_pct", 75.0),
 ])
 def test_reader_reads_the_records(name, want, global_timer, monkeypatch):
     recs = [rec("labeler/label", 0, 450, 0), rec("labeler/pad", 0, 100, 1, 0),
@@ -326,7 +350,11 @@ def test_reader_reads_the_records(name, want, global_timer, monkeypatch):
             rec("network/predict_input", 2000, 2100, 5),
             rec("network/stage", 2000, 2030, 6, 5),
             rec("network/forward", 2030, 2080, 7, 5),
-            rec("k1", 2040, 2065, 8, 7)]
+            rec("k1", 2040, 2065, 8, 7),
+            rec("network/pinned_download", 2090, 2090, 9, 5),
+            rec("network/pinned_fresh", 2090, 2090, 10, 5)] \
+        + [rec("network/pinned_download", t, t, 11 + i)
+           for i, t in enumerate((3000, 3100, 3200))]
     monkeypatch.setattr(global_timer, "records", recs)
     got = load_reader(name).read(SimpleNamespace(trace_data=synthetic_trace()))
     assert got == pytest.approx(want)
