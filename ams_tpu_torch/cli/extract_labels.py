@@ -10,10 +10,15 @@ Example (on the card; add ``--device cpu`` to run on the host):
 ``tools/torch_frames_from_video.py`` makes one from an mp4).  Without
 ``--teacher_checkpoint`` the teacher's weights are seeded random.
 ``--gpu N`` selects ``cuda:N``; ``--device cpu`` runs on the host.
+``--output_stride`` and ``--decoder_output_stride`` are DeepLab's flags:
+omitted, the AMS teacher (output stride 16, no decoder); ``--output_stride
+8 --decoder_output_stride 4`` is DeepLabV3+ as the DeepLab model zoo
+evaluates its Cityscapes Xception-65 (``models.xception_deeplab``).
 """
 
 import argparse
 
+from ams_tpu_torch.models.xception_deeplab import deeplab_teacher
 from ams_tpu_torch.runtime.labeler import extract_labels
 from ams_tpu_torch.utils.trace import GLOBAL_TIMER
 
@@ -37,6 +42,11 @@ def build_parser():
                         "frame height: 32 up to 320 rows, 16 up to 640, "
                         "8 beyond")
     p.add_argument("--max_frames", type=int, default=None)
+    p.add_argument("--output_stride", type=int, choices=[8, 16], default=16,
+                   help="the teacher's output stride (DeepLab's flag)")
+    p.add_argument("--decoder_output_stride", type=int, choices=[4],
+                   default=None,
+                   help="the decoder's output stride; omitted, no decoder")
     return p
 
 
@@ -47,7 +57,9 @@ def main(argv=None):
     n = extract_labels(args.input_video, args.dump_path,
                        teacher_checkpoint=args.teacher_checkpoint,
                        height=args.height, batch=args.batch,
-                       max_frames=args.max_frames, device=device)
+                       max_frames=args.max_frames, device=device,
+                       teacher_config=deeplab_teacher(
+                           args.output_stride, args.decoder_output_stride))
     print("There were %d frames extracted" % n)
     if GLOBAL_TIMER.counts:
         print(GLOBAL_TIMER.summary())

@@ -39,6 +39,8 @@ from ams_tpu_torch.data.image import (
 from ams_tpu_torch.data.video import open_video
 from ams_tpu_torch.models import layers
 from ams_tpu_torch.models.xception_deeplab import (
+    TEACHER_OS16,
+    TeacherConfig,
     init_teacher_params,
     teacher_predict_fast,
     teacher_predictions,
@@ -62,28 +64,45 @@ def auto_batch(height: int) -> int:
 
 
 def _load_teacher_params(teacher_checkpoint: Optional[str], seed: int,
-                         device):
-    """Teacher params on ``device``: a checkpoint's values (names with or
-    without a ``teacher/`` prefix) over the seeded init, or the seeded
-    init alone when no checkpoint is named.  A named checkpoint that is
-    missing raises: synthetic weights are opt-in by omitting the path,
-    never a fallback for a typo."""
+                         device, config: Optional[TeacherConfig] = None):
+    """Teacher params of ``config`` (None: the AMS teacher) on ``device``:
+    a checkpoint's values (names with or without a ``teacher/`` prefix)
+    over the seeded init, or the seeded init alone when no checkpoint is
+    named.  A named checkpoint that is missing raises: synthetic weights
+    are opt-in by omitting the path, never a fallback for a typo.  So does
+    a named checkpoint without every ``decoder/`` variable of a
+    configuration with a decoder (a teacher saved without one, or under
+    other names): a seeded decoder never stands in for a trained one."""
+    config = config or TEACHER_OS16
     if teacher_checkpoint:
         loaded = ckpt.load_any(teacher_checkpoint)  # missing path raises
         loaded = {k.removeprefix("teacher/"): v for k, v in loaded.items()}
-        base = params_to_numpy(init_teacher_params(seed, device="cpu"))
+        base = params_to_numpy(init_teacher_params(seed, device="cpu",
+                                                   config=config))
+        names = {ckpt.strip_suffix(k) for k in loaded}
+        missing = sorted(k for k in base
+                         if k.startswith("decoder/") and k not in names)
+        if missing:
+            raise ValueError(
+                "teacher checkpoint %s lacks %d of the decoder's variables "
+                "(e.g. %s): it holds no decoder for %r"
+                % (teacher_checkpoint, len(missing), missing[:3], config))
         return params_from_numpy(ckpt.merge_restore(base, loaded), device)
-    return init_teacher_params(seed, device=device)
+    return init_teacher_params(seed, device=device, config=config)
 
 
-def _make_predict(compute_dtype: str, device):
+def _make_predict(compute_dtype: str, device,
+                  config: Optional[TeacherConfig] = None):
     """-> predict(params, frames uint8 (N, H, W, 3) numpy) -> int32 ids
-    (N, H, W) numpy; bfloat16 takes the fused fast path."""
+    (N, H, W) numpy, of the teacher ``config`` names (None: the AMS
+    teacher); bfloat16 takes the fused fast path."""
     cd = layers.as_dtype(compute_dtype)
+    config = config or TEACHER_OS16
     if cd == torch.bfloat16:
-        forward = teacher_predict_fast
+        forward = functools.partial(teacher_predict_fast, config=config)
     else:
-        forward = functools.partial(teacher_predictions, compute_dtype=cd)
+        forward = functools.partial(teacher_predictions, compute_dtype=cd,
+                                    config=config)
 
     def predict(params, frames: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
@@ -123,7 +142,8 @@ def _predict_fixed_batch(predict, params, arr: np.ndarray,
 
 def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
                          compute_dtype: str = "bfloat16", seed: int = 0,
-                         batch: Optional[int] = None, device=None):
+                         batch: Optional[int] = None, device=None,
+                         teacher_config: Optional[TeacherConfig] = None):
     """-> labeler(frames uint8 (N, H, W, 3) RGB) -> labels uint8 (N, H, W).
 
     Pads each frame +1 symmetric on top and left, runs the teacher on
@@ -132,13 +152,17 @@ def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
     ``batch=None`` resolves from the first call's (unpadded) frame height
     by ``auto_batch`` and then stays.  Without a checkpoint the teacher is
     seeded synthetic (for tests and demos); a named but missing path
-    raises.  Spans: ``labeler/label`` per call, inside it
-    ``labeler/pad``, per chunk ``labeler/chunk`` (``labeler/upload``,
-    ``labeler/forward``: the teacher and K1 enqueued,
+    raises.  ``teacher_config`` chooses the teacher
+    (``models.xception_deeplab.TeacherConfig``; None: the AMS teacher).
+    Spans: ``labeler/label`` per call, inside it ``labeler/pad``, per
+    chunk ``labeler/chunk`` (``labeler/upload``, ``labeler/forward``: the
+    teacher and K1 enqueued, with the teacher's ``teacher/trunk``,
+    ``teacher/aspp`` and, with a decoder, ``teacher/decoder`` inside it;
     ``labeler/download``), ``labeler/join`` and ``labeler/unpad``."""
     dev = resolve_device(device)
-    params = _load_teacher_params(teacher_checkpoint, seed, dev)
-    predict = _make_predict(compute_dtype, dev)
+    params = _load_teacher_params(teacher_checkpoint, seed, dev,
+                                  teacher_config)
+    predict = _make_predict(compute_dtype, dev, teacher_config)
     resolved = {"batch": batch}
 
     def label(frames: np.ndarray) -> np.ndarray:
@@ -163,24 +187,27 @@ def extract_labels(input_video: str, dump_path: str,
                    teacher_checkpoint: Optional[str] = None,
                    height: Optional[int] = None, batch: Optional[int] = None,
                    max_frames: Optional[int] = None,
-                   compute_dtype: str = "bfloat16", device=None) -> int:
+                   compute_dtype: str = "bfloat16", device=None,
+                   teacher_config: Optional[TeacherConfig] = None) -> int:
     """Run the teacher over the clip (a frame directory) on ``device``
     (default the card) and write each frame's ``gt_``, ``annot_`` and
     ``vis_`` PNGs into ``dump_path``.  ``height`` resizes frames to
     (height, 2 height) first (cv2's bilinear); ``batch=None`` resolves
     from the first frame's height by ``auto_batch``.  The frame limit is
     the experiment's test length times the clip's fps, capped by
-    ``max_frames``.  Returns the number of frames labelled.  Spans:
-    ``labeler/load`` (the weights), ``labeler/read`` (decode, resize,
-    pad), ``labeler/predict`` and ``labeler/write``."""
+    ``max_frames``.  ``teacher_config`` chooses the teacher as in
+    ``make_teacher_labeler``.  Returns the number of frames labelled.
+    Spans: ``labeler/load`` (the weights), ``labeler/read`` (decode,
+    resize, pad), ``labeler/predict`` and ``labeler/write``."""
     dev = resolve_device(device)
     os.makedirs(dump_path, exist_ok=True)
     exp_num = exp_configs.video_exp_num(input_video)
     cmap = colormap()
 
     with GLOBAL_TIMER.span("labeler/load"):
-        params = _load_teacher_params(teacher_checkpoint, 0, dev)
-    predict = _make_predict(compute_dtype, dev)
+        params = _load_teacher_params(teacher_checkpoint, 0, dev,
+                                      teacher_config)
+    predict = _make_predict(compute_dtype, dev, teacher_config)
 
     reader = open_video(input_video, prefetch=True)
     fps = reader.fps

@@ -303,9 +303,15 @@ def test_cli_flags_and_defaults_match_jax(monkeypatch):
         tp, (ta, tk) = _parsed(cli, argv + ["--device", "cpu"], monkeypatch)
         assert ta == ja
         assert tk.pop("device") == "cpu"
+        assert tk.pop("teacher_config") == tx.TEACHER_OS16
         assert tk == jk
     mine, theirs = flags(tp), flags(jp)
     assert mine.pop("device") == (("--device",), "cuda", False, None)
+    # DeepLab's flags, which the JAX package's CLI lacks
+    assert mine.pop("output_stride") == (("--output_stride",), 16, False,
+                                         int)
+    assert mine.pop("decoder_output_stride") == (
+        ("--decoder_output_stride",), None, False, int)
     assert mine == theirs
     _, (_, kw) = _parsed(cli, argv[:4] + ["--gpu", "1"], monkeypatch)
     assert kw["device"] == "cuda:1"

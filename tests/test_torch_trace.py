@@ -32,7 +32,9 @@ from perfbench.lib.trace import Trace  # noqa: E402
 
 SPAN_READERS = ("label_idle_host_ms_per_call",
                 "client_dispatch_ms_per_batch",
-                "client_pinned_reuse_pct")
+                "client_pinned_reuse_pct",
+                "label_idle_host_ms_per_call.os8",
+                "teacher_forward_ms_per_chunk.os8")
 
 
 @pytest.fixture(autouse=True)
@@ -284,7 +286,9 @@ def test_label_spans(global_timer):
         assert children(recs, chunk) == ["labeler/upload",
                                          "labeler/forward",
                                          "labeler/download"]
-    assert len(recs) == 1 + 1 + 3 * 4 + 2
+    for forward in spans.named(recs, "labeler/forward"):
+        assert children(recs, forward) == ["teacher/trunk", "teacher/aspp"]
+    assert len(recs) == 1 + 1 + 3 * 6 + 2
     assert {r.request for r in recs} == {recs[0].id}
 
 
@@ -337,6 +341,7 @@ def test_reader_returns_none_without_records(name, global_timer):
     # host steps pad [0, 100), unpad [400, 450), join [1400, 1450): no
     # busy time in them, 200 ns over two calls
     ("label_idle_host_ms_per_call", 200 / 2 / 1e6),
+    ("label_idle_host_ms_per_call.os8", 200 / 2 / 1e6),
     # forward [2030, 2080) less its child [2040, 2065)
     ("client_dispatch_ms_per_batch", 25 / 1e6),
     # one fresh block among four pinned downloads
