@@ -40,6 +40,7 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from ams_tpu_torch.ops import depthwise_dilated
 from ams_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-3          # FusedBatchNormV3 epsilon in the reference meta graph
@@ -137,15 +138,30 @@ def conv2d(x, w, stride=1, rate=1, padding="SAME", *, compute_dtype=None):
                     dilation=rate)
 
 
+def takes_dilated_kernel(x, w, stride, rate, pad) -> bool:
+    """True where ``depthwise_conv2d`` gives a CUDA input (after ``_cast``
+    and ``_pad``) to the dilated depthwise kernel: where the kernel takes
+    it (``depthwise_dilated.takes``), outside ``video_batched()`` and with
+    no gradient wanted.  Everything else, rate 1 among it, stays with
+    ``F.conv2d``."""
+    return (not _VIDEO_BATCHED.get()
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad))
+            and depthwise_dilated.takes(x, w, stride, rate, pad))
+
+
 def depthwise_conv2d(x, w, stride=1, rate=1, padding="SAME", *,
                      compute_dtype=None):
     """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1); ``padding`` as
-    in ``conv2d``."""
+    in ``conv2d``.  On the card a dilated 3x3 goes to the port's kernel
+    where ``takes_dilated_kernel`` holds."""
     if isinstance(x, spatial.WidthShards):
         return _over_width(depthwise_conv2d, x, w, stride, rate, padding,
                            compute_dtype)
     x, w = _cast(x, w, compute_dtype)
     x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
+    if x.is_cuda and takes_dilated_kernel(x, w, stride, rate, pad):
+        return depthwise_dilated.depthwise_dilated(x, w, rate, pad)
     return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
                     dilation=rate, groups=w.shape[2])
 

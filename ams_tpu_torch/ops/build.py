@@ -102,6 +102,17 @@ def _build(names: Sequence[str]) -> Dict[str, dict]:
     return info
 
 
+def current_stream(device_index: int) -> int:
+    """PyTorch's current stream on the device, as the raw handle a
+    launcher takes."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name``, built on first use in this process."""
     with _LOCK:

@@ -146,13 +146,6 @@ def _launcher():
     return fn
 
 
-def _raw_stream(device_index: int) -> int:
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(device_index)
-    return torch.cuda.current_stream(device_index).cuda_stream
-
-
 def fused_resize_argmax(grid: torch.Tensor, out_hw,
                         class_index=None) -> torch.Tensor:
     """argmax_k(resize_bilinear_ac(grid[:, class_index], out_hw)) without
@@ -201,7 +194,7 @@ def fused_resize_argmax(grid: torch.Tensor, out_hw,
     args = (grid.data_ptr(), int(grid.dtype == torch.bfloat16), sb, sc, sy,
             sx, cls_ptr, n_sel, itab.data_ptr(), ftab.data_ptr(),
             out.data_ptr(), b, h, w, len(plan.bands), plan.n_tiles,
-            plan.threads, _raw_stream(index))
+            plan.threads, build.current_stream(index))
     if index == torch.cuda.current_device():
         err = _launcher()(*args)
     else:

@@ -24,7 +24,9 @@ each kernel of the paths on the card:
    at eight shapes, f32 NCHW and bf16 channels-last with a class table,
    each run twice for the same bits; resize+CE, loss only and loss with
    gradient, up to 256 classes; the fused MBConv block through K3's and
-   K4's wrappers, against the unfused bf16 block);
+   K4's wrappers, against the unfused bf16 block, whose depthwise stays
+   on cuDNN; the dilated depthwise kernel against cuDNN at the teacher's
+   and the student's dilated shapes, one at batch 1 in row strips);
 3. the f32 client path, with every launch counter set to 0 just before it:
    predict_input on full-class and class-subset clients, delta apply on the
    float16 and int8d wires, predict again, BN-folded export, reload,
@@ -65,10 +67,11 @@ each kernel of the paths on the card:
    shapes (257x513 at batch 32, 513x1025 at batch 16); `python -m
    ams_tpu_torch.cli.extract_labels` at --height 256 and at full frame
    size, each with every launch counter set to 0 just before it (K1 once
-   per chunk, nothing else; every gt_ PNG equal to the labeler's ids;
+   and the dilated depthwise kernel 6 times per chunk, nothing else;
+   every gt_ PNG equal to the labeler's ids;
    annot_ and vis_ written), frames/s end to end and of the labeler
    alone, with the device's busy share; the f32 labeler on the card (no
-   K1) against the CPU's; the bf16 labels' agreement with the f32 labels;
+   kernel) against the CPU's; the bf16 labels' agreement with the f32 labels;
 8. the live runtime on the same clip: `python -m ams_tpu_torch.cli.serve
    --port 0 --max_clients 2` (seeded teacher and student with BN
    statistics from the clip, by --teacher_checkpoint and a
@@ -80,13 +83,15 @@ each kernel of the paths on the card:
    then, with every launch counter set to 0 just before it, one session
    in this process (a LiveServer with the bf16 teacher labeler, a
    LiveClient on the card): K1 once per labeler chunk and once per frame
-   predicted and no other kernel, the client equal to the server's values
+   predicted, the dilated depthwise kernel 6 times per labeler chunk, and
+   no other kernel, the client equal to the server's values
    at float16 after every delta and to final_vars at the end, its ids
    equal to a CPU client's off near ties, and the bf16 round's times;
 9. multi-device: (a) a MultiVideoServer with exps 25, 22, 12 and 17 on
    the card (bf16, 256x512, minibatch 10), each memory 20 clip frames
    labelled by make_sharded_labeler over a one-card mesh with phase 7's
-   teacher (ids equal to teacher_predictions, no kernel); video 0 of a
+   teacher (ids equal to teacher_predictions, the dilated depthwise
+   kernel 6 times and no other kernel); video 0 of a
    6-iteration multi-video round against a single-video round from the
    same state, generator and class mask, equal to the bit; 200
    iterations, then 20 with keep_mask (finite losses, distinct videos,
@@ -202,6 +207,15 @@ import tempfile
 import time
 
 BUDGET_S = 1100          # the watchdog: well inside the 1200 s limit
+DW_TEACHER_OS16 = 6      # dilated depthwise launches per OS16 teacher
+                         # forward: exit_flow/block2 at rate 2, ASPP 6/12/18
+# the dilated depthwise kernel's cases: (n, c, h, w, rate), the main
+# path's shapes (OS16 teacher chunk, bf16 student, OS8 teacher) and one
+# at batch 1, where the plan cuts the rows into strips
+DW_CASES = ((16, 1024, 33, 65, 2), (16, 2048, 33, 65, 6),
+            (16, 2048, 33, 65, 12), (16, 2048, 33, 65, 18),
+            (16, 960, 32, 64, 2), (8, 728, 129, 257, 2),
+            (1, 1024, 33, 65, 2))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside tensor cores
 BF16_MMA_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -236,18 +250,21 @@ def reset_counters():
     """Every kernel wrapper's launch count to 0."""
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import depthwise_dilated as dd
     from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.ops import fused_resize_ce as frc
 
     fra.fused_resize_argmax.launches = 0
     frc.resize_ce_loss.launches = frc.resize_ce_loss_grad.launches = 0
     fm.mbconv_block.launches = fb.mbconv_banded.launches = 0
+    dd.depthwise_dilated.launches = 0
 
 
 def launch_counts():
     """Every kernel wrapper's launch count, by kernel."""
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import depthwise_dilated as dd
     from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.ops import fused_resize_ce as frc
 
@@ -255,7 +272,8 @@ def launch_counts():
             "resize_ce_loss": frc.resize_ce_loss.launches,
             "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
             "mbconv": fm.mbconv_block.launches,
-            "mbconv_banded": fb.mbconv_banded.launches}
+            "mbconv_banded": fb.mbconv_banded.launches,
+            "depthwise_dilated": dd.depthwise_dilated.launches}
 
 
 def expected_mbconv_launches(h, w, banded_min_hw=96 * 96):
@@ -274,6 +292,41 @@ def expected_mbconv_launches(h, w, banded_min_hw=96 * 96):
                and banded_supported(gh, gw, stride, rate))
         gh, gw = -(-gh // stride), -(-gw // stride)
     return k3, k4
+
+
+def expected_dw_launches(h, w, fused=False, banded_min_hw=96 * 96):
+    """Dilated depthwise kernel launches of one bf16 folded forward of
+    (h, w) frames: one for each block at stride 1 and rate 2 or more
+    (expanded_conv_14 to _16) that ``fused`` leaves to
+    ``layers.depthwise_conv2d``, as ``expected_mbconv_launches`` routes
+    them."""
+    from ams_tpu_torch.models.mobilenetv2_deeplab import _BLOCKS
+    from ams_tpu_torch.ops.fused_mbconv_banded import banded_supported
+
+    gh, gw = -(-(h + 1) // 2), -(-(w + 1) // 2)      # +1 pad, stem stride 2
+    n = 0
+    for _, _, stride, rate in _BLOCKS:
+        fused_here = (fused is True and stride == 1
+                      or fused == "banded" and gh * gw >= banded_min_hw
+                      and banded_supported(gh, gw, stride, rate))
+        n += stride == 1 and rate >= 2 and not fused_here
+        gh, gw = -(-gh // stride), -(-gw // stride)
+    return n
+
+
+@contextlib.contextmanager
+def cudnn_depthwise():
+    """``layers.depthwise_conv2d`` on cuDNN alone, the dilated depthwise
+    kernel routed off: the library baselines keep the library's depthwise
+    convolution."""
+    from ams_tpu_torch.models import layers
+
+    routed = layers.takes_dilated_kernel
+    layers.takes_dilated_kernel = lambda *a: False
+    try:
+        yield
+    finally:
+        layers.takes_dilated_kernel = routed
 
 
 def log(msg=""):
@@ -1268,8 +1321,9 @@ def phase_mbconv_checks(dev):
             if he:
                 y = layers.conv2d(y, hwio[0], compute_dtype=dtype)
                 y = layers.relu6(y + be.to(y.dtype)[:, None, None])
-            y = layers.depthwise_conv2d(y, hwio[1], stride=s, rate=r,
-                                        compute_dtype=dtype)
+            with cudnn_depthwise():
+                y = layers.depthwise_conv2d(y, hwio[1], stride=s, rate=r,
+                                            compute_dtype=dtype)
             y = layers.relu6(y + bd.to(y.dtype)[:, None, None])
             y = layers.conv2d(y, hwio[2], compute_dtype=dtype)
             y = y + bp.to(y.dtype)[:, None, None]
@@ -1341,6 +1395,75 @@ def grad_rel_error(got, want):
         if err > worst:
             worst, worst_key = err, k
     return worst, worst_key
+
+
+def phase_dw_checks(dev):
+    """Phase 2, DW: the dilated depthwise kernel through its wrapper
+    against ``depthwise_dilated_plain`` (``F.conv2d``, that is cuDNN) at
+    ``DW_CASES``, with TF's SAME padding and a width shard's (rate, 0).
+    Both sum nine f32 products and round to bf16 once, in other orders:
+    the kernel is held within one bf16 ulp of the result plus what the
+    two f32 sums can differ by, 18 x 2^-24 of the sum of the products'
+    magnitudes.  Timed by CUDA events beside the bytes bound: input read
+    once, output written once."""
+    import torch
+    import torch.nn.functional as F
+    from ams_tpu_torch.ops import depthwise_dilated as dd
+
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 24)
+    out = []
+    for n, c, h, w, r in DW_CASES:
+        x = torch.randn(n, c, h, w, generator=gen).to(dev).to(
+            bf16, memory_format=torch.channels_last)
+        wt = (torch.randn(3, 3, c, 1, generator=gen) * 0.5).to(dev).to(bf16)
+        worst = 0.0
+        for pad in ((r, r), (r, 0)):
+            before = dd.depthwise_dilated.launches
+            got = dd.depthwise_dilated(x, wt, r, pad)
+            want = dd.depthwise_dilated_plain(x, wt, r, pad)
+            torch.cuda.synchronize()
+            check(dd.depthwise_dilated.launches == before + 1,
+                  "DW: one call launched %d kernels"
+                  % (dd.depthwise_dilated.launches - before))
+            mags = F.conv2d(x.float().abs(),
+                            wt.float().abs().permute(2, 3, 0, 1),
+                            padding=pad, dilation=r, groups=c)
+            g, v = got.float(), want.float()
+            _, e = torch.frexp(torch.maximum(g.abs(), v.abs()))
+            ulp = torch.ldexp(torch.ones_like(g), e - 8)
+            excess = float(((g - v).abs() - ulp
+                            - 18 * 2.0 ** -24 * mags).max())
+            ulps = float(((g - v).abs() / ulp).max())
+            check(got.shape == want.shape and excess <= 0
+                  and got.is_contiguous(memory_format=torch.channels_last),
+                  "DW %s rate %d pad %s: %g beyond an ulp of cuDNN"
+                  % ((n, c, h, w), r, pad, excess))
+            worst = max(worst, ulps)
+            del got, want, mags, g, v, e, ulp
+        ho, wo = h, w
+        plan = dd.depthwise_dilated_plan(n, c, ho, wo, r, sms)
+        k_ms = cuda_ms(lambda: dd.depthwise_dilated(x, wt, r, (r, r)), 20)
+        l_ms = cuda_ms(lambda: dd.depthwise_dilated_plain(x, wt, r, (r, r)),
+                       5)
+        bound = (2 * n * c * ho * wo + 9 * c) * 2 / HBM_BYTES_PER_S * 1e3
+        row = {"case": "x".join(map(str, (n, c, h, w))) + " rate %d" % r,
+               "shape": [n, c, h, w, r], "max_ulps": worst,
+               "kernel_ms": k_ms, "library_ms": l_ms, "bound_ms": bound,
+               "bound_share": bound / k_ms,
+               "plan": {"strips": plan.strips, "strip_rows": plan.strip_rows,
+                        "blocks": plan.blocks}}
+        log("  DW %s: within %.2g ulp of cuDNN at both paddings; kernel "
+            "%.4f ms (%.1f%% of its bound %.4f ms), cuDNN channels-last "
+            "%.4f ms; plan %s" % (row["case"], worst, k_ms,
+                                  100 * bound / k_ms, bound, l_ms,
+                                  row["plan"]))
+        out.append(row)
+        del x, wt
+    check(any(c["plan"]["strips"] > 1 for c in out),
+          "DW: no case ran the row-strip path")
+    return out
 
 
 def phase_server(dev):
@@ -1649,6 +1772,7 @@ def phase_bf16_client(dev, host):
         trainable_names,
     )
     from ams_tpu_torch.models.resize import resize_nchw
+    from ams_tpu_torch.ops import depthwise_dilated as dd
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
     from ams_tpu_torch.ops import fused_resize_argmax as fra
@@ -1716,15 +1840,20 @@ def phase_bf16_client(dev, host):
 
     variants = (("unfused", False), ("fused K3", True),
                 ("banded K4", "banded"))
-    grids, per_forward = {}, {}
+    grids, per_forward, dw_forward = {}, {}, {}
     with torch.inference_mode():
+        before = dd.depthwise_dilated.launches
         g32 = tf._grid_logits_folded_nchw(fp, staged, torch.float32)
+        check(dd.depthwise_dilated.launches == before,
+              "the f32 folded forward launched the dilated depthwise kernel")
         for name, fused in variants:
-            before = (fm.mbconv_block.launches, fb.mbconv_banded.launches)
+            before = (fm.mbconv_block.launches, fb.mbconv_banded.launches,
+                      dd.depthwise_dilated.launches)
             grids[name] = tf._grid_logits_folded_nchw(
                 fp, staged, bf16, fused).float()
             per_forward[name] = (fm.mbconv_block.launches - before[0],
                                  fb.mbconv_banded.launches - before[1])
+            dw_forward[name] = dd.depthwise_dilated.launches - before[2]
         torch.cuda.synchronize()
         ids = {n: fra.fused_resize_argmax(g.contiguous(), (H, W))
                for n, g in grids.items()}
@@ -1755,7 +1884,8 @@ def phase_bf16_client(dev, host):
                           "differ_off_near_ties": int((~same & decisive)
                                                       .sum()),
                           "k3_per_forward": per_forward[name][0],
-                          "k4_per_forward": per_forward[name][1]}
+                          "k4_per_forward": per_forward[name][1],
+                          "dw_per_forward": dw_forward[name]}
         err32 = float((grids["unfused"] - g32).abs().max())
         decisive32 = m32 > 2 * err32 + TIE_MARGIN
         same32 = ids["unfused"] == ids32
@@ -1772,10 +1902,11 @@ def phase_bf16_client(dev, host):
               % (agree32, agree32_dec))
         for name, _ in variants:
             r = rows[name]
-            log("  %s: K3 %d and K4 %d launches per forward; grid max abs "
-                "diff to unfused %.4g; ids agree %.6f, %d differ off near "
-                "ties" % (name, r["k3_per_forward"], r["k4_per_forward"],
-                          r["grid_max_abs_vs_unfused"],
+            log("  %s: K3 %d, K4 %d and DW %d launches per forward; grid "
+                "max abs diff to unfused %.4g; ids agree %.6f, %d differ off "
+                "near ties" % (name, r["k3_per_forward"], r["k4_per_forward"],
+                               r["dw_per_forward"],
+                               r["grid_max_abs_vs_unfused"],
                           r["agree_vs_unfused"], r["differ_off_near_ties"]))
             check(r["agree_vs_unfused"] > 0.99 and
                   r["differ_off_near_ties"] == 0,
@@ -1786,6 +1917,11 @@ def phase_bf16_client(dev, host):
               and k3_want > 0 and k4_want > 0,
               "MBConv launches per forward %s; the routing gives K3 %d, "
               "K4 %d" % (per_forward, k3_want, k4_want))
+        dw_want = {name: expected_dw_launches(H, W, fused)
+                   for name, fused in variants}
+        check(dw_forward == dw_want and dw_want["unfused"] == 3,
+              "dilated depthwise launches per forward %s; the routing "
+              "gives %s" % (dw_forward, dw_want))
 
     # frames/s: device (CUDA events) and end to end (host uint8 in, host
     # ids out, host clock), f32 folded beside the three bf16 variants
@@ -1902,14 +2038,11 @@ def phase_bf16_client(dev, host):
           "%dx%d banded forward: %d K4 launches (want %d), agreement %.4f"
           % (oh, ow, k4_odd, k4_want, agree_odd))
 
-    launches = {"resize_argmax": fra.fused_resize_argmax.launches,
-                "resize_ce_loss": frc.resize_ce_loss.launches,
-                "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
-                "mbconv": fm.mbconv_block.launches,
-                "mbconv_banded": fb.mbconv_banded.launches}
+    launches = launch_counts()
     log("  kernel launches on the bf16 client path: %s" % launches)
     check(launches["mbconv"] > 0 and launches["mbconv_banded"] > 0
-          and launches["resize_argmax"] > 0,
+          and launches["resize_argmax"] > 0
+          and launches["depthwise_dilated"] > 0,
           "a kernel of the bf16 client path was not launched: %s" % launches)
     return launches, rows, rates, handover
 
@@ -2260,10 +2393,12 @@ def phase_teacher(dev, clip):
                    batch, chunks, launches))
             log("  spans:\n" + "\n".join(
                 "    " + line for line in GLOBAL_TIMER.summary().split("\n")))
-            check(launches["resize_argmax"] == chunks
-                  and sum(launches.values()) == chunks,
-                  "%s: launches %s, want K1 once per chunk (%d) and no other"
-                  % (name, launches, chunks))
+            want = dict(dict.fromkeys(launches, 0), resize_argmax=chunks,
+                        depthwise_dilated=DW_TEACHER_OS16 * chunks)
+            check(launches == want,
+                  "%s: launches %s, want K1 once and the dilated depthwise "
+                  "kernel %d times per chunk (%d chunks), no other"
+                  % (name, launches, DW_TEACHER_OS16, chunks))
             for kind in ("gt", "annot", "vis"):
                 n = len(glob.glob(os.path.join(dump, kind + "_*.png")))
                 check(n == n_frames, "%s: %d %s_ files, want %d"
@@ -2299,7 +2434,8 @@ def phase_teacher(dev, clip):
                    ms_text(busy and 100 * k1_s / busy, "%.2f%%")))
             runs[name] = {
                 "frames": n_frames, "batch": batch, "chunks": chunks,
-                "k1_launches": launches["resize_argmax"], "wall_s": wall,
+                "k1_launches": launches["resize_argmax"],
+                "dw_launches": launches["depthwise_dilated"], "wall_s": wall,
                 "load_s": wall - loop, "loop_s": loop,
                 "end_to_end_frames_per_s": n_frames / loop,
                 "read_s": spans.get("labeler/read"),
@@ -2317,9 +2453,8 @@ def phase_teacher(dev, clip):
         f32_card = make_teacher_labeler(ckpt, compute_dtype="float32",
                                         batch=2, device=dev)
         ids_card = f32_card(two)
-        check(fra.fused_resize_argmax.launches == 0,
-              "the f32 labeler launched K1 %d times"
-              % fra.fused_resize_argmax.launches)
+        check(not any(launch_counts().values()),
+              "the f32 labeler launched %s" % launch_counts())
         torch.set_num_threads(os.cpu_count() or 1)
         cpu = torch.device("cpu")
         f32_cpu = make_teacher_labeler(ckpt, compute_dtype="float32",
@@ -2339,7 +2474,7 @@ def phase_teacher(dev, clip):
         f32_tol = 1e-3 * max(1.0, scale)
         log("  f32 labeler, card vs CPU on 2 frames of %dx%d: logits max "
             "abs err %.3g (|logits| up to %.3g, tolerance %.3g); ids agree "
-            "on %.6f, %d differ off near ties; K1 launches 0"
+            "on %.6f, %d differ off near ties; no kernel launched"
             % (th, 2 * th, err, scale, f32_tol,
                float((ids_card == ids_cpu).mean()), differ))
         check(err <= f32_tol and differ == 0,
@@ -2674,7 +2809,13 @@ def phase_live_k1(dev, clip, sdir, sname, tpath):
           "K1 launched %d times; the labeler's %d chunks and the %d frames "
           "predicted make %d" % (launches["resize_argmax"], stats["chunks"],
                                  predicted, stats["chunks"] + predicted))
-    others = {k: v for k, v in launches.items() if k != "resize_argmax"}
+    check(launches["depthwise_dilated"] == DW_TEACHER_OS16 * stats["chunks"],
+          "the dilated depthwise kernel launched %d times; the labeler's "
+          "%d chunks make %d" % (launches["depthwise_dilated"],
+                                 stats["chunks"],
+                                 DW_TEACHER_OS16 * stats["chunks"]))
+    others = {k: v for k, v in launches.items()
+              if k not in ("resize_argmax", "depthwise_dilated")}
     check(not any(others.values()), "other kernels launched: %s" % others)
 
     srv = server.final_vars["k1"]
@@ -2728,6 +2869,7 @@ def phase_live_k1(dev, clip, sdir, sname, tpath):
         % (["%.3f" % s for s in round_s],
            ["%.2f" % (1e3 * s / iters) for s in round_s]))
     return {"k1_launches": launches["resize_argmax"],
+            "dw_launches": launches["depthwise_dilated"],
             "chunks": stats["chunks"], "frames_predicted": predicted,
             "draws": stats["draws"], "round_s": round_s,
             "ms_per_iteration": [1e3 * s / iters for s in round_s],
@@ -2858,15 +3000,19 @@ def phase_multi_video(dev, clip):
                                       compute_dtype=torch.bfloat16)
     check(ids.shape == (n_frames, SH, SW) and torch.equal(ids, want),
           "the sharded labeler's ids differ from teacher_predictions")
-    check(not any(label_counts.values()),
-          "the labeler launched kernels: %s" % label_counts)
+    check(label_counts == dict(dict.fromkeys(label_counts, 0),
+                               depthwise_dilated=DW_TEACHER_OS16),
+          "the labeler launched %s, want the dilated depthwise kernel %d "
+          "times (one forward) and no other" % (label_counts,
+                                                DW_TEACHER_OS16))
     labels = ids.cpu().numpy().astype(np.uint8)
     del staged, want
     log("  labeled %d frames of %dx%d in %.2f s over %s (bf16, %d classes "
-        "present); ids equal to teacher_predictions; no kernel launched; "
+        "present); ids equal to teacher_predictions; the dilated "
+        "depthwise kernel launched %d times, no other; "
         "clip, teacher and labels %.2f s"
         % (n_frames, SH, SW, label_s, mesh, len(np.unique(labels)),
-           time.perf_counter() - t_setup))
+           label_counts["depthwise_dilated"], time.perf_counter() - t_setup))
 
     srv = MultiVideoServer(video_ids=MV_VIDEOS, height=SH,
                            batch_size=MINI_BATCH, lr=LR,
@@ -3842,21 +3988,28 @@ def phase_width(dev, teacher, rgb, ranks):
             top2 = torch.topk(logits, 2, dim=1).values
             off_ties = (top2[:, 0] - top2[:, 1]) > 2 * gap
         del logits, parts, top2
-        check(not any(counts.values()), "the labeler launched %s" % counts)
+        dw_want = DW_TEACHER_OS16 * WIDTH_MODEL if cd == torch.bfloat16 \
+            else 0
+        check(counts == dict(dict.fromkeys(counts, 0),
+                             depthwise_dilated=dw_want),
+              "the %s labeler launched %s, want the dilated depthwise "
+              "kernel %d times (on each shard's column window) and no other"
+              % (name, counts, dw_want))
         labeled[name] = {
             "agreement": float((ids == want).float().mean()),
             "logit_gap": gap, "logit_scale": scale,
             "near_tie_share": 1.0 - float(off_ties.float().mean()),
             "equal_off_ties": bool(torch.equal(ids[off_ties],
                                                want[off_ties])),
-            "s": label_s}
+            "s": label_s, "dw_launches": counts["depthwise_dilated"]}
     f32 = labeled["float32"]
     check(f32["agreement"] >= WIDTH_LABEL_AGREE and f32["equal_off_ties"]
           and f32["logit_gap"] <= WIDTH_LOGIT_RTOL * f32["logit_scale"],
           "the f32 labeler over %s: %s" % (mesh, f32))
     rec["labeler"] = labeled
     log("  (b) make_sharded_labeler over %s, %d frames of %dx%d, against "
-        "teacher_predictions: %s; no kernel launched"
+        "teacher_predictions: %s; in bf16 the dilated depthwise kernel "
+        "on each shard's window, no other kernel"
         % (mesh, WIDTH_LABEL_B, padded.shape[1], padded.shape[2],
            "; ".join("%s ids agree on %.6f, equal off near ties %s (logits "
                      "%.3g apart at a scale of %.3g, near ties %.2g of the "
@@ -4638,6 +4791,7 @@ def main() -> int:
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ams_tpu_torch.ops import build
+    from ams_tpu_torch.ops import depthwise_dilated as dd
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
     from ams_tpu_torch.ops import fused_resize_argmax as fra
@@ -4648,7 +4802,8 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.perf_counter()
-    info = build.build(["resize_argmax", "resize_ce", "mbconv"])
+    info = build.build(["resize_argmax", "resize_ce", "mbconv",
+                        "depthwise_dilated"])
     log("  built in %.2f s wall" % (time.perf_counter() - t0))
     from ams_tpu_torch.native import build as native_build
     codec_build = native_build.build()
@@ -4666,6 +4821,7 @@ def main() -> int:
     cases = phase_kernel_checks(dev)
     ce_cases = phase_resize_ce_checks(dev)
     mb_cases = phase_mbconv_checks(dev)
+    dw_cases = phase_dw_checks(dev)
 
     log("phase 3: main path (edge client, %dx%dx%d uint8 frames)" % (B, H, W))
     launches, host_fps, dev_fps, host = phase_main_path(dev)
@@ -4772,6 +4928,36 @@ def main() -> int:
         "teacher_cases": teacher_cases,
         "handover": handover,
         "shape": main_case["shape"], "cases": cases}]
+    dw_main = dw_cases[0]
+    kernels.append({
+        "name": "depthwise_dilated", "route": "cuda", "source": dd.SOURCE,
+        "replaces": dd.REPLACES,
+        "launches": labeler_runs["full size"]["dw_launches"],
+        "max_ulps": max(c["max_ulps"] for c in dw_cases),
+        "ms": dw_main["kernel_ms"], "kernel_ms": dw_main["kernel_ms"],
+        "plain_ms": dw_main["library_ms"],
+        "library_ms": dw_main["library_ms"],
+        "bound_ms": dw_main["bound_ms"], "bound_by": "bytes",
+        "plain_is_library": True,
+        "teacher_path_launches": {name: r["dw_launches"]
+                                  for name, r in labeler_runs.items()},
+        "teacher_per_chunk": DW_TEACHER_OS16,
+        "bf16_path_launches": bf16_launches["depthwise_dilated"],
+        "bf16_per_forward": {n: r["dw_per_forward"]
+                             for n, r in bf16_rows.items()},
+        "live_path_launches": live_k1["dw_launches"],
+        "multi_video_label_launches": multi_video["label_launches"][
+            "depthwise_dilated"],
+        "width_label_launches": {n: r["dw_launches"] for n, r in
+                                 width["labeler"].items()},
+        "shape": dw_main["shape"], "plan": dw_main["plan"],
+        "cases": dw_cases})
+    for c in dw_cases:
+        log("depthwise_dilated %s: %.4f ms per call (bound %.4f, %.1f%%); "
+            "cuDNN channels-last %.4f ms; max %.2g ulp; plan %s"
+            % (c["case"], c["kernel_ms"], c["bound_ms"],
+               100 * c["bound_share"], c["library_ms"], c["max_ulps"],
+               c["plan"]))
     ce_main = ce_cases[0]
     for part, key in (("loss", "loss_abs_err"),
                       ("loss_grad", "grad_max_abs_err")):
