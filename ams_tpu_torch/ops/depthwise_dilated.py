@@ -20,7 +20,7 @@ sums are f32 and round to bf16 once.
 version, a CUDA tensor to the kernel, and nothing falls back from one to
 the other; it raises, on either device, on an input the kernel does not
 take; ``takes`` says which convolutions it is given.  Each launch is
-counted in ``depthwise_dilated.launches``, under a lock, and as
+counted by ``ops.build.launch`` as ``depthwise_dilated``, and as
 ``layers/depthwise_dilated`` by ``GLOBAL_TIMER``.
 ``depthwise_dilated_plan`` cuts a shape into the kernel's blocks.
 ``depthwise_dilated_plain`` is the plain version: the ``F.conv2d`` call
@@ -30,9 +30,7 @@ kernel's oracle on the card.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
@@ -48,7 +46,6 @@ COLS = 4                 # its kCols: output columns of a sub-lattice each
 RESIDENT_BLOCKS = 5      # its kMinBlocks: blocks an SM holds
 MIN_STRIP_ROWS = 8
 MAX_GRID_YZ = 65535
-_COUNT_LOCK = threading.Lock()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -93,15 +90,6 @@ def depthwise_dilated_plan(n: int, c: int, ho: int, wo: int, rate: int,
     rows = _cdiv(hs, strips)
     strips = _cdiv(hs, rows)
     return Plan(strips, rows, base * strips)
-
-
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = build.load("depthwise_dilated").depthwise_dilated_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,22 +183,11 @@ def depthwise_dilated(x: torch.Tensor, w: torch.Tensor, rate: int,
         wk = wk.clone()
     out = torch.empty((n, c, ho, wo), dtype=torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)
-    args = (x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, c, h, wdt, ho,
-            wo, rate, ph, pw, plan.strips, plan.strip_rows,
-            build.current_stream(index))
-    if index == torch.cuda.current_device():
-        err = _launcher()(*args)
-    else:
-        with torch.cuda.device(index):
-            err = _launcher()(*args)
-    if err != 0:
-        raise RuntimeError("depthwise_dilated kernel launch failed: CUDA "
-                           "error %d (x %s, rate %d, padding %s)"
-                           % (err, tuple(x.shape), rate, (ph, pw)))
-    with _COUNT_LOCK:
-        depthwise_dilated.launches += 1
+    build.launch(
+        "depthwise_dilated", "depthwise_dilated", index,
+        (x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, c, h, wdt, ho, wo,
+         rate, ph, pw, plan.strips, plan.strip_rows),
+        lambda: "x %s, rate %d, padding %s" % (tuple(x.shape), rate,
+                                               (ph, pw)))
     GLOBAL_TIMER.count("layers/depthwise_dilated")
     return out
-
-
-depthwise_dilated.launches = 0

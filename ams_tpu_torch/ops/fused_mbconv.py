@@ -40,10 +40,10 @@ depthwise in f32 with f32 weights, + bias, relu6, bf16; project with f32
 accumulation, + bias (+ the bf16 input), bf16 out.  The kernel and the
 plain version differ only in the order of the 1x1 sums.
 
-``mbconv_block`` is the stride-1 wrapper (its own launch counter);
-``ops.fused_mbconv_banded.mbconv_banded`` is K4's wrapper over the same
-kernel.  A CPU tensor goes to ``mbconv_plain``; a CUDA tensor launches the
-kernel or raises.
+``mbconv_block`` is the stride-1 wrapper, its launches counted as
+``mbconv``; ``ops.fused_mbconv_banded.mbconv_banded`` is K4's wrapper over
+the same kernel, counted as ``mbconv_banded``.  A CPU tensor goes to
+``mbconv_plain``; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -160,7 +160,7 @@ class KernelOccupancy:
 @functools.lru_cache(maxsize=None)
 def kernel_occupancy() -> KernelOccupancy:
     """``KernelOccupancy`` of the built kernel (builds it on first use)."""
-    return KernelOccupancy(_library())
+    return KernelOccupancy(build.load("mbconv"))
 
 
 def plan_cost(cin, cout, stride, rate, has_expand, tile_h, tile_w, chunk,
@@ -388,29 +388,12 @@ def fused_block(folded: Dict, name: str, has_expand: bool, rate: int,
     return blk
 
 
-def _library():
-    lib = build.load("mbconv")
-    fn = lib.mbconv_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.mbconv_smem_bytes.argtypes = [ctypes.c_int] * 8
-        lib.mbconv_smem_bytes.restype = ctypes.c_int
-        lib.mbconv_tilings.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4 \
-            + [ctypes.c_int]
-        lib.mbconv_tilings.restype = ctypes.c_int
-        lib.mbconv_resident.argtypes = [ctypes.c_int] * 3
-        lib.mbconv_resident.restype = ctypes.c_int
-    return lib
-
-
-def launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *, stride,
-           rate, residual):
+def launch(name, x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *,
+           stride, rate, residual):
     """One kernel launch on CUDA tensors, after every check the kernel
     relies on; raises on anything it cannot take.  The weights go in
-    packed (``packed_weights``).  Returns the output; the callers count
-    the launch."""
+    packed (``packed_weights``).  Returns the output; the launch is
+    counted under ``name``, the calling wrapper's."""
     if x.dim() != 4:
         raise ValueError("x must be (B, C, H, W); got %s" % (tuple(x.shape),))
     if x.dtype != torch.bfloat16:
@@ -451,15 +434,14 @@ def launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *, stride,
     ho, wo, top, left = out_geometry(h, w, stride, rate)
     out = torch.empty((b, ho, wo, cout), dtype=torch.bfloat16,
                       device=dev).permute(0, 3, 1, 2)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().mbconv_launch(
-            x.data_ptr(), 0 if we is None else we.data_ptr(), wp.data_ptr(),
-            f.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, cmid,
-            cout, ho, wo, stride, rate, top, left, int(residual), tile_h,
-            tile_w, chunk, mt, nt, stream)
-    if err != 0:
-        raise RuntimeError("mbconv kernel launch failed: CUDA error %d" % err)
+    build.launch(
+        name, "mbconv", dev.index,
+        (x.data_ptr(), 0 if we is None else we.data_ptr(), wp.data_ptr(),
+         f.data_ptr(), bp.data_ptr(), out.data_ptr(), b, h, w, cin, cmid,
+         cout, ho, wo, stride, rate, top, left, int(residual), tile_h,
+         tile_w, chunk, mt, nt),
+        lambda: "x %s, stride %d, rate %d, tile %dx%d, chunk %d"
+        % (tuple(x.shape), stride, rate, tile_h, tile_w, chunk))
     return out
 
 
@@ -473,13 +455,8 @@ def mbconv_block(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *,
     if x.device.type != "cuda":
         raise ValueError("mbconv_block runs on cpu or cuda tensors, not %s"
                          % x.device)
-    out = launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj,
-                 stride=1, rate=rate, residual=residual)
-    mbconv_block.launches += 1
-    return out
-
-
-mbconv_block.launches = 0
+    return launch("mbconv", x, w_expand, b_expand, w_dw, b_dw, w_proj,
+                  b_proj, stride=1, rate=rate, residual=residual)
 
 
 def run_fused_stage(x, blocks: List[FusedBlock]):

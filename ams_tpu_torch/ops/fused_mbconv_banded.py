@@ -11,13 +11,11 @@ window with the halo, and stride 2 is only an index computation there.
 
 ``banded_supported`` is copied from the JAX package unchanged, so that
 ``student_forward_folded(fused_blocks="banded")`` routes the same blocks
-to the kernel as JAX does.  ``mbconv_banded`` keeps its own launch
-counter, so that K4's launches can be told from K3's.
+to the kernel as JAX does.  ``mbconv_banded``'s launches are counted as
+``mbconv_banded``, so that K4's launches can be told from K3's.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ams_tpu_torch.ops.fused_mbconv import launch, mbconv_plain
 
@@ -52,10 +50,5 @@ def mbconv_banded(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj, *,
     if x.device.type != "cuda":
         raise ValueError("mbconv_banded runs on cpu or cuda tensors, not %s"
                          % x.device)
-    out = launch(x, w_expand, b_expand, w_dw, b_dw, w_proj, b_proj,
-                 stride=stride, rate=1, residual=residual)
-    mbconv_banded.launches += 1
-    return out
-
-
-mbconv_banded.launches = 0
+    return launch("mbconv_banded", x, w_expand, b_expand, w_dw, b_dw,
+                  w_proj, b_proj, stride=stride, rate=1, residual=residual)

@@ -13,18 +13,16 @@ it.
 
 ``fused_resize_argmax`` is the wrapper: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, and nothing falls back from one to
-the other.  Its launch count (``fused_resize_argmax.launches``) is taken
-under a lock: the live server's labeler and a client may launch from two
-threads at once.  ``resize_argmax_plan`` cuts a shape into the kernel's blocks.
+the other; ``ops.build.launch`` starts the kernel and counts it as
+``resize_argmax``.  ``resize_argmax_plan`` cuts a shape into the kernel's
+blocks.
 ``resize_argmax_plain`` is the plain version, the CPU path and the
 kernel's oracle on the card.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +39,6 @@ SOURCE = "ams_tpu_torch/csrc/resize_argmax.cu"
 REPLACES = "ams_tpu/ops/fused_resize_argmax.py:40 (_kernel)"
 MAX_THREADS = 128
 MAX_BAND_ROWS = 32       # the kernel's kMaxRows
-_COUNT_LOCK = threading.Lock()
 
 
 def _class_ids(class_index):
@@ -136,16 +133,6 @@ def _class_table(ids, c: int, device_index: int):
                             device=torch.device("cuda", device_index))
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = build.load("resize_argmax").resize_argmax_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 4 \
-        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3 \
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fused_resize_argmax(grid: torch.Tensor, out_hw,
                         class_index=None) -> torch.Tensor:
     """argmax_k(resize_bilinear_ac(grid[:, class_index], out_hw)) without
@@ -191,22 +178,10 @@ def fused_resize_argmax(grid: torch.Tensor, out_hw,
     else:
         cls_ptr, n_sel = _class_table(ids, c, index).data_ptr(), len(ids)
     out = torch.empty((b, h, w), dtype=torch.int32, device=grid.device)
-    args = (grid.data_ptr(), int(grid.dtype == torch.bfloat16), sb, sc, sy,
-            sx, cls_ptr, n_sel, itab.data_ptr(), ftab.data_ptr(),
-            out.data_ptr(), b, h, w, len(plan.bands), plan.n_tiles,
-            plan.threads, build.current_stream(index))
-    if index == torch.cuda.current_device():
-        err = _launcher()(*args)
-    else:
-        with torch.cuda.device(index):
-            err = _launcher()(*args)
-    if err != 0:
-        raise RuntimeError("resize_argmax kernel launch failed: CUDA error %d"
-                           " (grid %s %s -> %dx%d)"
-                           % (err, tuple(grid.shape), grid.dtype, h, w))
-    with _COUNT_LOCK:
-        fused_resize_argmax.launches += 1
+    build.launch(
+        "resize_argmax", "resize_argmax", index,
+        (grid.data_ptr(), int(grid.dtype == torch.bfloat16), sb, sc, sy, sx,
+         cls_ptr, n_sel, itab.data_ptr(), ftab.data_ptr(), out.data_ptr(), b,
+         h, w, len(plan.bands), plan.n_tiles, plan.threads),
+        lambda: "grid %s %s -> %dx%d" % (tuple(grid.shape), grid.dtype, h, w))
     return out
-
-
-fused_resize_argmax.launches = 0

@@ -29,7 +29,6 @@ oracle on the card.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -161,7 +160,7 @@ def card_plan(c: int, gh: int, gw: int, h: int, w: int,
     """``class_plan`` on CUDA device ``device_index``, by the built
     kernel's shared-memory count and the device's limit: the plan the
     launches use."""
-    lib = library()
+    lib = build.load("resize_ce")
     limit = lib.resize_ce_smem_limit(device_index)
     if limit < 0:
         raise RuntimeError("resize_ce: cannot read the shared memory limit "
@@ -183,23 +182,9 @@ def _tables(c: int, gh: int, gw: int, h: int, w: int, device: torch.device):
                            .to(device) for a in host)
 
 
-def library():
-    """The built kernel, its entry points typed: ``resize_ce_launch``,
-    ``resize_ce_smem_bytes`` (a band block's shared memory, in bytes) and
-    ``resize_ce_smem_limit`` (the most a block may use on a device)."""
-    lib = build.load("resize_ce")
-    if lib.resize_ce_launch.argtypes is None:
-        lib.resize_ce_launch.argtypes = [ctypes.c_void_p] * 15 \
-            + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        lib.resize_ce_launch.restype = ctypes.c_int
-        lib.resize_ce_smem_bytes.argtypes = [ctypes.c_int] * 4
-        lib.resize_ce_smem_bytes.restype = ctypes.c_size_t
-        lib.resize_ce_smem_limit.argtypes = [ctypes.c_int]
-        lib.resize_ce_smem_limit.restype = ctypes.c_int
-    return lib
-
-
 def _launch(grid, labels, weights, out_hw, want_grad, groups=None):
+    """One launch, counted as ``resize_ce_loss_grad`` with the gradient
+    and ``resize_ce_loss`` without."""
     b, c, gh, gw = grid.shape
     h, w = int(out_hw[0]), int(out_hw[1])
     plan, tables = _tables(c, gh, gw, h, w, grid.device)
@@ -211,22 +196,19 @@ def _launch(grid, labels, weights, out_hw, want_grad, groups=None):
         part = torch.empty(b * gh * 2 * c * plan.sumcol, dtype=torch.float32,
                            device=dev)
         grad = torch.empty_like(grid)
-    lib = library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.resize_ce_launch(
-            grid.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-            *(t.data_ptr() for t in tables), lpart.data_ptr(),
-            None if part is None else part.data_ptr(),
-            None if grad is None else grad.data_ptr(), out.data_ptr(),
-            b, c, gh, gw, h, w, len(plan.tiles), plan.ncol_max, plan.sumcol,
-            plan.threads, groups or 1, stream)
-    if err != 0:
-        raise RuntimeError(
-            "resize_ce kernel launch failed: CUDA error %d (grid %s -> %dx%d, "
-            "%d B of shared memory per block)"
-            % (err, tuple(grid.shape), h, w, lib.resize_ce_smem_bytes(
-                c, plan.threads, plan.ncol_max, int(want_grad))))
+    build.launch(
+        "resize_ce_loss_grad" if want_grad else "resize_ce_loss",
+        "resize_ce", dev.index,
+        (grid.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+         *(t.data_ptr() for t in tables), lpart.data_ptr(),
+         None if part is None else part.data_ptr(),
+         None if grad is None else grad.data_ptr(), out.data_ptr(),
+         b, c, gh, gw, h, w, len(plan.tiles), plan.ncol_max, plan.sumcol,
+         plan.threads, groups or 1),
+        lambda: "grid %s -> %dx%d, %d B of shared memory per block"
+        % (tuple(grid.shape), h, w, build.load("resize_ce")
+           .resize_ce_smem_bytes(c, plan.threads, plan.ncol_max,
+                                 int(want_grad))))
     if groups is None:
         return out[0], out[1], grad
     return out[0::2], out[1::2], grad
@@ -236,7 +218,6 @@ def resize_ce_loss(grid, labels, weights, out_hw):
     """Launch the loss-only kernel: -> (loss, total) 0-dim f32 tensors,
     total = max(sum(weights), 1)."""
     loss, total, _ = _launch(grid, labels, weights, out_hw, False)
-    resize_ce_loss.launches += 1
     return loss, total
 
 
@@ -246,13 +227,7 @@ def resize_ce_loss_grad(grid, labels, weights, out_hw, groups=None):
     R^T ((softmax - onehot) * w) C^T.  With ``groups`` G, the B images
     are G equal groups (videos): loss and total are then (G,), each
     group's as a launch over that group alone gives it."""
-    out = _launch(grid, labels, weights, out_hw, True, groups=groups)
-    resize_ce_loss_grad.launches += 1
-    return out
-
-
-resize_ce_loss.launches = 0
-resize_ce_loss_grad.launches = 0
+    return _launch(grid, labels, weights, out_hw, True, groups=groups)
 
 
 class _ResizeCE(torch.autograd.Function):

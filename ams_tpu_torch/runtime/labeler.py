@@ -4,10 +4,11 @@ Counterpart of ``ams_tpu/runtime/labeler.py``.  The teacher labels frames
 in fixed-size batches; the artifacts are the reference's: ``gt_%06d.png``
 (uint8 class ids), ``annot_%06d.png`` (colourised) and ``vis_%06d.png``
 (frame and colours blended half and half), with the reference's +1
-symmetric pad on top and left before the teacher and the ``[1:, 1:]``
-un-pad after it, and its progress lines.  PNG writing, cv2's resize and
-``addWeighted`` come from ``data/image.py``; the clip is a frame
-directory (``data/video.py``).
+symmetric pad on top and left before the teacher and the un-pad of that
+row and column after it, and its progress lines.  ``make_teacher_labeler``
+is the one label path: ``extract_labels`` labels through it.  PNG
+writing, cv2's resize and ``addWeighted`` come from ``data/image.py``; the
+clip is a frame directory (``data/video.py``).
 
 The default bfloat16 path ends in the fused upsample+argmax kernel
 (``teacher_predict_fast``, one launch per chunk); float32 takes the
@@ -148,7 +149,7 @@ def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
 
     Pads each frame +1 symmetric on top and left, runs the teacher on
     ``device`` (default the card) in fixed ``batch``-size chunks
-    (``_predict_fixed_batch``), and un-pads with ``[1:, 1:]``.
+    (``_predict_fixed_batch``), and drops the padded row and column.
     ``batch=None`` resolves from the first call's (unpadded) frame height
     by ``auto_batch`` and then stays.  Without a checkpoint the teacher is
     seeded synthetic (for tests and demos); a named but missing path
@@ -189,25 +190,21 @@ def extract_labels(input_video: str, dump_path: str,
                    max_frames: Optional[int] = None,
                    compute_dtype: str = "bfloat16", device=None,
                    teacher_config: Optional[TeacherConfig] = None) -> int:
-    """Run the teacher over the clip (a frame directory) on ``device``
-    (default the card) and write each frame's ``gt_``, ``annot_`` and
-    ``vis_`` PNGs into ``dump_path``.  ``height`` resizes frames to
-    (height, 2 height) first (cv2's bilinear); ``batch=None`` resolves
-    from the first frame's height by ``auto_batch``.  The frame limit is
-    the experiment's test length times the clip's fps, capped by
+    """Label the clip (a frame directory) with ``make_teacher_labeler`` on
+    ``device`` (default the card) and write each frame's ``gt_``,
+    ``annot_`` and ``vis_`` PNGs into ``dump_path``.  ``height`` resizes
+    frames to (height, 2 height) first (cv2's bilinear); ``batch=None``
+    resolves from the first frame's height by ``auto_batch``.  The frame
+    limit is the experiment's test length times the clip's fps, capped by
     ``max_frames``.  ``teacher_config`` chooses the teacher as in
     ``make_teacher_labeler``.  Returns the number of frames labelled.
-    Spans: ``labeler/load`` (the weights), ``labeler/read`` (decode,
-    resize, pad), ``labeler/predict`` and ``labeler/write``."""
+    Spans: ``labeler/load`` (the labeler, built at the first frame),
+    ``labeler/read`` (decode, resize), ``labeler/predict`` (one
+    ``labeler/label`` call per batch) and ``labeler/write``."""
     dev = resolve_device(device)
     os.makedirs(dump_path, exist_ok=True)
     exp_num = exp_configs.video_exp_num(input_video)
     cmap = colormap()
-
-    with GLOBAL_TIMER.span("labeler/load"):
-        params = _load_teacher_params(teacher_checkpoint, 0, dev,
-                                      teacher_config)
-    predict = _make_predict(compute_dtype, dev, teacher_config)
 
     reader = open_video(input_video, prefetch=True)
     fps = reader.fps
@@ -217,29 +214,28 @@ def extract_labels(input_video: str, dump_path: str,
     if not limit:
         limit = reader.frame_count
 
-    begin = time.time()
     index = 0
-    batch_frames = []
+    frames = []
+    label = None
 
-    def flush(frames_list, start_index):
-        arr = np.stack(frames_list)  # (b, H+1, W+1, 3) padded RGB
+    def flush():
+        nonlocal index
         with GLOBAL_TIMER.span("labeler/predict"):
-            preds = _predict_fixed_batch(predict, params, arr, batch)
+            labels = label(np.stack(frames))
         with GLOBAL_TIMER.span("labeler/write"):
-            for j in range(arr.shape[0]):
-                out = preds[j, 1:, 1:].astype(np.uint8)  # un-pad
-                idx = start_index + j
-                png_write(os.path.join(dump_path, "gt_%06d.png" % idx), out)
+            for j, (frame, out) in enumerate(zip(frames, labels), index):
+                png_write(os.path.join(dump_path, "gt_%06d.png" % j), out)
                 colored = cmap[out]
-                png_write(os.path.join(dump_path, "annot_%06d.png" % idx),
+                png_write(os.path.join(dump_path, "annot_%06d.png" % j),
                           rgb_to_bgr(colored))
-                overlay = add_weighted_u8(arr[j, 1:, 1:], 0.5, colored, 0.5,
-                                          0)
-                png_write(os.path.join(dump_path, "vis_%06d.png" % idx),
+                overlay = add_weighted_u8(frame, 0.5, colored, 0.5, 0)
+                png_write(os.path.join(dump_path, "vis_%06d.png" % j),
                           rgb_to_bgr(overlay))
+        index += len(frames)
+        frames.clear()
 
     try:
-        while index + len(batch_frames) < limit:
+        while index + len(frames) < limit:
             with GLOBAL_TIMER.span("labeler/read"):
                 frame = reader.read()
                 if frame is None:
@@ -247,24 +243,26 @@ def extract_labels(input_video: str, dump_path: str,
                 frame = bgr_to_rgb(frame)
                 if height is not None:
                     frame = resize_linear_u8(frame, (height, height * 2))
+            if label is None:
                 if batch is None:
                     batch = auto_batch(int(frame.shape[0]))
-                frame = np.pad(frame, ((1, 0), (1, 0), (0, 0)),
-                               mode="symmetric")
-            batch_frames.append(frame)
-            if len(batch_frames) == batch:
-                flush(batch_frames, index)
-                index += len(batch_frames)
-                batch_frames = []
+                with GLOBAL_TIMER.span("labeler/load"):
+                    label = make_teacher_labeler(
+                        teacher_checkpoint, compute_dtype, seed=0,
+                        batch=batch, device=dev,
+                        teacher_config=teacher_config)
+                begin = time.time()
+            frames.append(frame)
+            if len(frames) == batch:
+                flush()
                 if index % 100 < batch:
                     etf = (time.time() - begin) / max(index, 1) \
                         * (limit - index)
                     print("Have computed %d frames so far, ETF: "
                           "%02d:%02d.%02d" % (index, etf // 60, etf % 60,
                                               (etf * 100) % 100))
-        if batch_frames:
-            flush(batch_frames, index)
-            index += len(batch_frames)
+        if frames:
+            flush()
     finally:
         reader.release()
     return index

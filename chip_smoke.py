@@ -246,34 +246,23 @@ PNG_PROBE = {
 }
 
 
+# the kernel wrappers' names, under which ops.build counts their launches
+LAUNCH_NAMES = ("resize_argmax", "resize_ce_loss", "resize_ce_loss_grad",
+                "mbconv", "mbconv_banded", "depthwise_dilated")
+
+
 def reset_counters():
     """Every kernel wrapper's launch count to 0."""
-    from ams_tpu_torch.ops import fused_mbconv as fm
-    from ams_tpu_torch.ops import fused_mbconv_banded as fb
-    from ams_tpu_torch.ops import depthwise_dilated as dd
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
-    from ams_tpu_torch.ops import fused_resize_ce as frc
+    from ams_tpu_torch.ops import build
 
-    fra.fused_resize_argmax.launches = 0
-    frc.resize_ce_loss.launches = frc.resize_ce_loss_grad.launches = 0
-    fm.mbconv_block.launches = fb.mbconv_banded.launches = 0
-    dd.depthwise_dilated.launches = 0
+    build.reset_launch_counts()
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count, by kernel."""
-    from ams_tpu_torch.ops import fused_mbconv as fm
-    from ams_tpu_torch.ops import fused_mbconv_banded as fb
-    from ams_tpu_torch.ops import depthwise_dilated as dd
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
-    from ams_tpu_torch.ops import fused_resize_ce as frc
+    """Every kernel wrapper's launch count, by wrapper."""
+    from ams_tpu_torch.ops import build
 
-    return {"resize_argmax": fra.fused_resize_argmax.launches,
-            "resize_ce_loss": frc.resize_ce_loss.launches,
-            "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
-            "mbconv": fm.mbconv_block.launches,
-            "mbconv_banded": fb.mbconv_banded.launches,
-            "depthwise_dilated": dd.depthwise_dilated.launches}
+    return {name: build.launch_count(name) for name in LAUNCH_NAMES}
 
 
 def expected_mbconv_launches(h, w, banded_min_hw=96 * 96):
@@ -554,6 +543,7 @@ def k1_case(label, grid, h, w, ci=None):
     kernel's ids and the case's row; a failed check raises."""
     import torch
     import torch.nn.functional as F
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_argmax as fra
 
     b, c, gh, gw = grid.shape
@@ -581,13 +571,13 @@ def k1_case(label, grid, h, w, ci=None):
         return F.interpolate(g, size=(h, w), mode="bilinear",
                              align_corners=True).argmax(1)
 
-    n0 = fra.fused_resize_argmax.launches
+    n0 = build.launch_count("resize_argmax")
     got, got2 = kernel(), kernel()
     want = plain()
     torch.cuda.synchronize()
-    check(fra.fused_resize_argmax.launches == n0 + 2,
+    check(build.launch_count("resize_argmax") == n0 + 2,
           "resize_argmax: two calls launched %d kernels in case %s"
-          % (fra.fused_resize_argmax.launches - n0, label))
+          % (build.launch_count("resize_argmax") - n0, label))
     check(got.shape == (b, h, w) and got.dtype == torch.int32,
           "resize_argmax %s: ids %s %s" % (label, tuple(got.shape),
                                            got.dtype))
@@ -711,7 +701,7 @@ def ops_in_order(fn, device="cuda"):
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
+    from ams_tpu_torch.ops import build
 
     def tensors(tree):
         return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
@@ -726,11 +716,10 @@ def ops_in_order(fn, device="cuda"):
         return not outs or any(t.untyped_storage().data_ptr() not in base
                                for t in outs)
 
-    k1 = fra.fused_resize_argmax
     names = []
 
     def note_launches():
-        while seen[0] < k1.launches:
+        while seen[0] < build.launch_count("resize_argmax"):
             names.append("resize_argmax")
             seen[0] += 1
 
@@ -743,7 +732,7 @@ def ops_in_order(fn, device="cuda"):
             return out
 
     fn()
-    seen = [k1.launches]
+    seen = [build.launch_count("resize_argmax")]
     with Log():
         fn()
     note_launches()
@@ -762,6 +751,7 @@ def phase_main_path(dev):
         student_logits,
         trainable_names,
     )
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.runtime.network import SemanticNetwork
     from ams_tpu_torch.stream.codec import (
@@ -822,7 +812,7 @@ def phase_main_path(dev):
         ids_full = full.predict_input(frames)
         ids_sub = sub.predict_input(frames)
         log("  first predict_input x2: %.3f s" % (time.perf_counter() - t0))
-        check(fra.fused_resize_argmax.launches == 2,
+        check(build.launch_count("resize_argmax") == 2,
               "predict_input did not launch the kernel")
         check_ids("full-class client", ids_full, full, staged)
         check_ids("exp %d client" % SUBSET_EXP, ids_sub, sub, staged)
@@ -917,7 +907,7 @@ def phase_main_path(dev):
             % (np.round(f_mious, 4).tolist(), np.round(f_losses, 4).tolist(),
                rel))
         check(rel < 1e-3, "folded vs unfolded losses differ by %g" % rel)
-        launches = fra.fused_resize_argmax.launches
+        launches = build.launch_count("resize_argmax")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("  kernel launches on the main path: resize_argmax %d" % launches)
@@ -975,9 +965,10 @@ def phase_resize_ce_checks(dev):
     version's, the library's and the bounds."""
     import torch
     import torch.nn.functional as F
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_ce as frc
 
-    smem_fn = frc.library().resize_ce_smem_bytes
+    smem_fn = build.load("resize_ce").resize_ce_smem_bytes
     cases = [("server round, 19 classes", (10, 19, 17, 33, SH, SW), 0.8),
              ("server round, exp %d subset" % SUBSET_EXP,
               (10, 6, 17, 33, SH, SW), 0.8),
@@ -1023,13 +1014,15 @@ def phase_resize_ce_checks(dev):
             g = grid.clone().requires_grad_(True)
             return torch.autograd.grad(library_loss(g), g)[0]
 
-        n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
+        n0 = (build.launch_count("resize_ce_loss"),
+              build.launch_count("resize_ce_loss_grad"))
         k_loss, k_grad = kernel_pair()
         k_loss2, k_grad2 = kernel_pair()
         with torch.no_grad():
             only = frc.fused_resize_ce(grid, labels, weights, (h, w))
             only2 = frc.fused_resize_ce(grid, labels, weights, (h, w))
-        n1 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
+        n1 = (build.launch_count("resize_ce_loss"),
+              build.launch_count("resize_ce_loss_grad"))
         p_loss, p_grad = plain_pair()
         torch.cuda.synchronize()
         check(n1 == (n0[0] + 2, n0[1] + 2),
@@ -1200,11 +1193,12 @@ def phase_mbconv_checks(dev):
     moves a bf16 rounding by one ulp now and then)."""
     import torch
     from ams_tpu_torch.models import layers
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_mbconv as fm
     from ams_tpu_torch.ops import fused_mbconv_banded as fb
 
     bf16 = torch.bfloat16
-    lib = fm._library()
+    lib = build.load("mbconv")
     occ = fm.kernel_occupancy()
     for (mt, nt), (regs, spill) in occ.registers.items():
         log("  warp tiling (%d, %d): %d registers per thread, %d bytes "
@@ -1408,6 +1402,7 @@ def phase_dw_checks(dev):
     once, output written once."""
     import torch
     import torch.nn.functional as F
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import depthwise_dilated as dd
 
     bf16 = torch.bfloat16
@@ -1420,13 +1415,13 @@ def phase_dw_checks(dev):
         wt = (torch.randn(3, 3, c, 1, generator=gen) * 0.5).to(dev).to(bf16)
         worst = 0.0
         for pad in ((r, r), (r, 0)):
-            before = dd.depthwise_dilated.launches
+            before = build.launch_count("depthwise_dilated")
             got = dd.depthwise_dilated(x, wt, r, pad)
             want = dd.depthwise_dilated_plain(x, wt, r, pad)
             torch.cuda.synchronize()
-            check(dd.depthwise_dilated.launches == before + 1,
+            check(build.launch_count("depthwise_dilated") == before + 1,
                   "DW: one call launched %d kernels"
-                  % (dd.depthwise_dilated.launches - before))
+                  % (build.launch_count("depthwise_dilated") - before))
             mags = F.conv2d(x.float().abs(),
                             wt.float().abs().permute(2, 3, 0, 1),
                             padding=pad, dilation=r, groups=c)
@@ -1481,8 +1476,7 @@ def phase_server(dev):
     from ams_tpu_torch.distill import train_step as ts
     from ams_tpu_torch.distill.loss import distill_loss
     from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
-    from ams_tpu_torch.ops import fused_resize_ce as frc
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.runtime.network import SemanticNetwork
     from ams_tpu_torch.stream.codec import (
         apply_delta,
@@ -1543,12 +1537,12 @@ def phase_server(dev):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         iters_run += iters
-        check(frc.resize_ce_loss_grad.launches == iters_run
-              and frc.resize_ce_loss.launches == 0,
+        check(build.launch_count("resize_ce_loss_grad") == iters_run
+              and build.launch_count("resize_ce_loss") == 0,
               "event %d: resize_ce launched %d loss+grad and %d loss-only "
               "kernels for %d iterations (want one loss+grad each)"
-              % (event, frc.resize_ce_loss_grad.launches,
-                 frc.resize_ce_loss.launches, iters_run))
+              % (event, build.launch_count("resize_ce_loss_grad"),
+                 build.launch_count("resize_ce_loss"), iters_run))
         check(losses.shape == (iters,) and np.isfinite(losses).all(),
               "event %d: losses %s" % (event, losses[:5]))
         first, last = float(losses[:10].mean()), float(losses[-10:].mean())
@@ -1634,9 +1628,8 @@ def phase_server(dev):
            held_rel))
     check(held_rel <= 1e-5, "no-grad fused vs gather loss differ by %g"
           % held_rel)
-    launches = {"resize_ce_loss": frc.resize_ce_loss.launches,
-                "resize_ce_loss_grad": frc.resize_ce_loss_grad.launches,
-                "resize_argmax": fra.fused_resize_argmax.launches}
+    launches = {name: build.launch_count(name) for name in
+                ("resize_ce_loss", "resize_ce_loss_grad", "resize_argmax")}
     log("  kernel launches on the server path: %s" % launches)
     check(launches["resize_argmax"] > 0, "the client's predict_input did "
           "not launch resize_argmax on the server path")
@@ -1772,11 +1765,8 @@ def phase_bf16_client(dev, host):
         trainable_names,
     )
     from ams_tpu_torch.models.resize import resize_nchw
-    from ams_tpu_torch.ops import depthwise_dilated as dd
-    from ams_tpu_torch.ops import fused_mbconv as fm
-    from ams_tpu_torch.ops import fused_mbconv_banded as fb
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_argmax as fra
-    from ams_tpu_torch.ops import fused_resize_ce as frc
     from ams_tpu_torch.runtime.network import SemanticNetwork
     from ams_tpu_torch.stream.codec import apply_delta, decode_delta, \
         encode_delta
@@ -1842,18 +1832,21 @@ def phase_bf16_client(dev, host):
                 ("banded K4", "banded"))
     grids, per_forward, dw_forward = {}, {}, {}
     with torch.inference_mode():
-        before = dd.depthwise_dilated.launches
+        before = build.launch_count("depthwise_dilated")
         g32 = tf._grid_logits_folded_nchw(fp, staged, torch.float32)
-        check(dd.depthwise_dilated.launches == before,
+        check(build.launch_count("depthwise_dilated") == before,
               "the f32 folded forward launched the dilated depthwise kernel")
         for name, fused in variants:
-            before = (fm.mbconv_block.launches, fb.mbconv_banded.launches,
-                      dd.depthwise_dilated.launches)
+            before = (build.launch_count("mbconv"),
+                      build.launch_count("mbconv_banded"),
+                      build.launch_count("depthwise_dilated"))
             grids[name] = tf._grid_logits_folded_nchw(
                 fp, staged, bf16, fused).float()
-            per_forward[name] = (fm.mbconv_block.launches - before[0],
-                                 fb.mbconv_banded.launches - before[1])
-            dw_forward[name] = dd.depthwise_dilated.launches - before[2]
+            per_forward[name] = (
+                build.launch_count("mbconv") - before[0],
+                build.launch_count("mbconv_banded") - before[1])
+            dw_forward[name] = (build.launch_count("depthwise_dilated")
+                                - before[2])
         torch.cuda.synchronize()
         ids = {n: fra.fused_resize_argmax(g.contiguous(), (H, W))
                for n, g in grids.items()}
@@ -2021,11 +2014,11 @@ def phase_bf16_client(dev, host):
     oh, ow = ODD_HW
     odd = torch.from_numpy(synthetic_frames(B, oh, ow, SEED + 4)).to(dev)
     with torch.inference_mode():
-        before = fb.mbconv_banded.launches
+        before = build.launch_count("mbconv_banded")
         ids_b = tf.student_predict_fast_folded(fp, odd, ci,
                                                compute_dtype=bf16,
                                                fused_blocks="banded")
-        k4_odd = fb.mbconv_banded.launches - before
+        k4_odd = build.launch_count("mbconv_banded") - before
         ids_u = tf.student_predict_fast_folded(fp, odd, ci,
                                                compute_dtype=bf16)
         torch.cuda.synchronize()
@@ -2298,7 +2291,6 @@ def phase_teacher(dev, clip):
     from ams_tpu_torch.data.video import frame_path, frame_to_rgb, \
         load_gt_label
     from ams_tpu_torch.models import xception_deeplab as xd
-    from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.runtime.labeler import auto_batch, \
         make_teacher_labeler
     from ams_tpu_torch.utils.trace import GLOBAL_TIMER
@@ -3243,6 +3235,7 @@ def phase_batched_round(dev, state, serial_rec):
 
     import torch
     from ams_tpu_torch.distill.train_step import make_distill_round
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_ce as frc
     from ams_tpu_torch.parallel import (
         make_multi_video_round,
@@ -3424,12 +3417,12 @@ def phase_batched_round(dev, state, serial_rec):
             lambda g, lab, wt: loss_fn(g, lab, wt, (SH, SW))))(
                 grid, labels, weights)
 
-    n0 = frc.resize_ce_loss_grad.launches
+    n0 = build.launch_count("resize_ce_loss_grad")
     k_grad, k_loss = vmapped(frc.fused_resize_ce)
     torch.cuda.synchronize()
-    check(frc.resize_ce_loss_grad.launches == n0 + 1,
+    check(build.launch_count("resize_ce_loss_grad") == n0 + 1,
           "K2 under vmap launched %d times for %d videos"
-          % (frc.resize_ce_loss_grad.launches - n0, V))
+          % (build.launch_count("resize_ce_loss_grad") - n0, V))
     p_grad, p_loss = vmapped(frc.resize_ce_plain)
     k_loss_err = [float((k_loss[j] - p_loss[j]).abs()) for j in range(V)]
     k_grad_err = float((k_grad - p_grad).abs().max())

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ams_tpu_torch.models import layers
+from ams_tpu_torch.ops import build
 from ams_tpu_torch.ops import depthwise_dilated as dd
 from ams_tpu_torch.utils.trace import GLOBAL_TIMER
 
@@ -165,11 +166,11 @@ def test_cpu_tensor_never_launches(rate):
     """A CPU input that the predicate takes still runs F.conv2d: no
     launch, no count; the result is the plain version's."""
     x, w = _x(), torch.randn(3, 3, 16, 1)
-    launches = dd.depthwise_dilated.launches
+    launches = build.launch_count("depthwise_dilated")
     counted = GLOBAL_TIMER.counts.get(COUNTER, 0)
     y = layers.depthwise_conv2d(x, w, rate=rate,
                                 compute_dtype=torch.bfloat16)
-    assert dd.depthwise_dilated.launches == launches
+    assert build.launch_count("depthwise_dilated") == launches
     assert GLOBAL_TIMER.counts.get(COUNTER, 0) == counted
     xb = x.to(torch.bfloat16, memory_format=torch.channels_last)
     assert torch.equal(y, dd.depthwise_dilated_plain(
@@ -406,14 +407,14 @@ def test_kernel_within_an_ulp_of_cudnn(shape):
     n, c, h, wd, rate = shape
     x = _input((n, c, h, wd), rate, "cuda")
     w = _weight(c, rate, "cuda").to(torch.bfloat16)
-    launches = dd.depthwise_dilated.launches
+    launches = build.launch_count("depthwise_dilated")
     for padding in ((rate, rate), (rate, 0)):
         got = dd.depthwise_dilated(x, w, rate, padding)
         want = dd.depthwise_dilated_plain(x, w, rate, padding)
         torch.cuda.synchronize()
         assert got.is_contiguous(memory_format=torch.channels_last)
         _agree(got, want, x, w, rate, padding)
-    assert dd.depthwise_dilated.launches == launches + 2
+    assert build.launch_count("depthwise_dilated") == launches + 2
 
 
 STRIP_SHAPES = [   # batch 1, where the plan cuts rows into strips
@@ -483,16 +484,16 @@ def test_os8_chunk_ids_match_the_cudnn_route(monkeypatch):
         xd.teacher_logits_nchw(params, frames[:2], out_hw=None,
                                config=config)
     with torch.inference_mode():
-        launches = dd.depthwise_dilated.launches
+        launches = build.launch_count("depthwise_dilated")
         counted = GLOBAL_TIMER.counts.get(COUNTER, 0)
         ids = xd.teacher_predict_fast(params, frames, config=config)
         torch.cuda.synchronize()
-        assert dd.depthwise_dilated.launches == launches + 57
+        assert build.launch_count("depthwise_dilated") == launches + 57
         assert GLOBAL_TIMER.counts.get(COUNTER, 0) == counted + 57
         with monkeypatch.context() as m:
             m.setattr(layers, "takes_dilated_kernel", lambda *a: False)
             ref = xd.teacher_predict_fast(params, frames, config=config)
-        assert dd.depthwise_dilated.launches == launches + 57
+        assert build.launch_count("depthwise_dilated") == launches + 57
     agree = (ids == ref).float().mean().item()
     assert agree >= 0.999, agree
     assert len(torch.unique(ref)) > 1

@@ -237,6 +237,46 @@ def test_extract_labels_writes_jax_files_byte_for_byte(extracted):
     assert gt.shape == (16, 32) and gt.dtype == np.uint8 and gt.max() < 19
 
 
+@pytest.mark.parametrize("batch,chunks", [(2, [2, 2, 1]), (None, [5])],
+                         ids=["batch2", "auto"])
+def test_extract_labels_labels_through_one_labeler(teacher, extracted,
+                                                   tmp_path, monkeypatch,
+                                                   batch, chunks):
+    """``extract_labels`` builds one ``make_teacher_labeler`` with the
+    batch it resolved (``auto_batch`` of 16 rows: 32) and calls its
+    ``label`` once per batch of unpadded frames; the files equal the
+    batch-4 run's byte for byte."""
+    _, path = teacher
+    made, calls = [], []
+    real = lab.make_teacher_labeler
+
+    def spy(*args, **kwargs):
+        made.append(kwargs)
+        label = real(*args, **kwargs)
+
+        def counted(frames):
+            calls.append(frames.shape)
+            return label(frames)
+        return counted
+
+    monkeypatch.setattr(lab, "make_teacher_labeler", spy)
+    dump = str(tmp_path / "labels") + "/"
+    n = lab.extract_labels(extracted["clip"], dump, teacher_checkpoint=path,
+                           height=16, batch=batch, max_frames=5,
+                           compute_dtype="float32", device="cpu")
+    assert n == 5
+    assert len(made) == 1
+    assert made[0]["seed"] == 0 and made[0]["batch"] == (batch or 32)
+    assert calls == [(k, 16, 32, 3) for k in chunks]
+    names = sorted(os.listdir(dump))
+    assert names == sorted(os.listdir(extracted["port"]))
+    for name in names:
+        with open(dump + name, "rb") as f:
+            mine = f.read()
+        with open(extracted["port"] + name, "rb") as f:
+            assert mine == f.read(), name
+
+
 def test_annot_and_vis_are_cv2_bytes_of_the_same_labels(extracted):
     cmap = colormap()
     for i in range(5):

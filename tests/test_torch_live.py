@@ -538,6 +538,7 @@ def test_kernel_library_builds_once_across_threads(monkeypatch, tmp_path):
     import sys
 
     from ams_tpu_torch.ops import build
+    from test_torch_ops_build import StandInLibrary
 
     calls = []
 
@@ -548,7 +549,7 @@ def test_kernel_library_builds_once_across_threads(monkeypatch, tmp_path):
 
     monkeypatch.setattr(build, "_build", fake_build)
     monkeypatch.setattr(build, "_LOADED", {})
-    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    monkeypatch.setattr(build.ctypes, "CDLL", StandInLibrary)
     libs = []
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)

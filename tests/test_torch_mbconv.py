@@ -149,10 +149,11 @@ def test_plain_matches_mbconv_banded(h, w, cin, cmid, cout, stride,
     want = np.asarray(JB.mbconv_banded(
         jnp.asarray(x, jnp.bfloat16), *_kernel_args(wt, has_expand, jnp),
         stride=stride, residual=residual, tr=tr, interpret=True), np.float32)
-    before = FB.mbconv_banded.launches
+    before = build.launch_count("mbconv_banded")
     got = FB.mbconv_banded(_nchw(x), *_kernel_args(wt, has_expand, torch),
                            stride=stride, residual=residual)
-    assert FB.mbconv_banded.launches == before   # the CPU runs no kernel
+    # the CPU runs no kernel
+    assert build.launch_count("mbconv_banded") == before
     _assert_close(_nhwc(got), want)
 
 
@@ -404,10 +405,10 @@ def test_launch_takes_a_mid_width_of_8(monkeypatch):
         memory_format=torch.channels_last)
     wt = _kernel_args(_weights(rng, 8, 8, 8, False), False, torch)
     with pytest.raises(Reached):
-        F.launch(x, *wt, stride=1, rate=1, residual=False)
+        F.launch("mbconv", x, *wt, stride=1, rate=1, residual=False)
     wt = _kernel_args(_weights(rng, 8, 24, 8, True), True, torch)
     with pytest.raises(Reached):
-        F.launch(x, *wt, stride=1, rate=1, residual=True)
+        F.launch("mbconv", x, *wt, stride=1, rate=1, residual=True)
 
 
 def test_fused_block_cache_follows_the_parameters():
@@ -443,13 +444,15 @@ def test_cpu_tensor_never_touches_the_library(monkeypatch):
     monkeypatch.setattr(build, "build", refuse)
     rng = np.random.RandomState(2)
     wt = _weights(rng, 8, 16, 8, True)
-    before = (F.mbconv_block.launches, FB.mbconv_banded.launches)
+    before = (build.launch_count("mbconv"),
+              build.launch_count("mbconv_banded"))
     x = _nchw(_bf16(rng.randn(1, 6, 7, 8)))
     assert F.mbconv_block(x, *_kernel_args(wt, True, torch),
                           residual=True).shape == (1, 8, 6, 7)
     assert FB.mbconv_banded(x, *_kernel_args(wt, True, torch),
                             stride=2).shape == (1, 8, 3, 4)
-    assert (F.mbconv_block.launches, FB.mbconv_banded.launches) == before
+    assert (build.launch_count("mbconv"),
+            build.launch_count("mbconv_banded")) == before
 
 
 def test_wrapper_rejects_what_the_kernel_cannot_take():
@@ -462,13 +465,13 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     # the launch checks, reached before any library is loaded
     x = torch.zeros(1, 8, 4, 4, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        F.launch(x.float(), *wt, stride=1, rate=1, residual=False)
+        F.launch("mbconv", x.float(), *wt, stride=1, rate=1, residual=False)
     with pytest.raises(ValueError):      # NCHW storage, not channels-last
-        F.launch(torch.zeros(1, 8, 4, 5, dtype=torch.bfloat16), *wt,
-                 stride=1, rate=1, residual=False)
+        F.launch("mbconv", torch.zeros(1, 8, 4, 5, dtype=torch.bfloat16),
+                 *wt, stride=1, rate=1, residual=False)
     with pytest.raises(ValueError):      # residual needs cin == cout, s 1
-        F.launch(x.contiguous(memory_format=torch.channels_last), *wt,
-                 stride=2, rate=1, residual=True)
+        F.launch("mbconv", x.contiguous(memory_format=torch.channels_last),
+                 *wt, stride=2, rate=1, residual=True)
 
 
 @pytest.mark.cuda

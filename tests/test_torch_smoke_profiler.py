@@ -6,7 +6,8 @@ profiler's device times as not measured, and its launch-order check on
 the client's forwards (no cast, gather or copy between the forward and K1)
 reads the dispatched aten ops in place of the device's kernels.  These
 tests drive both on the CPU with a stand-in profiler and a stand-in K1
-that counts its launches as the wrapper does on the card.
+whose launch ``ops.build.launch`` counts, as it counts the wrapper's on
+the card, with a stand-in kernel library.
 """
 import contextlib
 import os
@@ -20,7 +21,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
+from ams_tpu_torch.ops import build  # noqa: E402
 from ams_tpu_torch.ops import fused_resize_argmax as fra  # noqa: E402
+from test_torch_ops_build import install_stand_in  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -61,13 +64,15 @@ def profiles(monkeypatch):
 @pytest.fixture
 def k1(monkeypatch):
     """A stand-in K1 wrapper: an int32 id map, one launch counted."""
+    install_stand_in(monkeypatch, "resize_argmax")
+
     def launch(grid, out_hw, class_index=None):
         out = torch.empty((grid.shape[0],) + tuple(out_hw),
                           dtype=torch.int32)
-        launch.launches += 1
+        build.launch("resize_argmax", "resize_argmax", 0, (),
+                     lambda: "stand-in")
         return out
 
-    launch.launches = 0
     monkeypatch.setattr(fra, "fused_resize_argmax", launch)
     return launch
 

@@ -275,6 +275,7 @@ def test_bf16_predict_fast_agrees_with_jax(tf_cases, torch_params,
 def test_k1_on_teacher_grid_and_one_labeler_chunk_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with nvcc: K1 is CUDA only")
+    from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import fused_resize_argmax as fra
     from ams_tpu_torch.runtime.labeler import make_teacher_labeler
 
@@ -288,15 +289,15 @@ def test_k1_on_teacher_grid_and_one_labeler_chunk_on_card():
                                       compute_dtype=torch.bfloat16,
                                       out_hw=None)
         assert grid.shape == (2, 19, 17, 33)
-        before = fra.fused_resize_argmax.launches
+        before = build.launch_count("resize_argmax")
         got = fra.fused_resize_argmax(grid, (257, 513))
         want = fra.resize_argmax_plain(grid, (257, 513))
         torch.cuda.synchronize()
-    assert fra.fused_resize_argmax.launches == before + 1
+    assert build.launch_count("resize_argmax") == before + 1
     assert torch.equal(got, want)
     label = make_teacher_labeler(batch=2, device="cuda")
-    before = fra.fused_resize_argmax.launches
+    before = build.launch_count("resize_argmax")
     ids = label(frames)
-    assert fra.fused_resize_argmax.launches == before + 1
+    assert build.launch_count("resize_argmax") == before + 1
     assert ids.shape == (2, 256, 512) and ids.dtype == np.uint8
     np.testing.assert_array_equal(ids, got.cpu().numpy()[:, 1:, 1:])

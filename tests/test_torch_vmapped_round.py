@@ -58,6 +58,7 @@ from ams_tpu_torch.distill import train_step as tts
 from ams_tpu_torch.distill.optimizer import adam_apply, adam_init
 from ams_tpu_torch.models import resize
 from ams_tpu_torch.models.mobilenetv2_deeplab import init_student_params
+from ams_tpu_torch.ops import build
 from ams_tpu_torch.ops import fused_resize_ce as frc
 from ams_tpu_torch.parallel import sharded as tsharded
 
@@ -282,15 +283,16 @@ def _ce_case(V, b=2, c=6, gh=5, gw=9, h=33, w=65, seed=4):
 
 def test_vmapped_fused_loss_on_the_cpu_equals_per_video_calls():
     grid, labels, weights, hw = _ce_case(3)
-    n0 = (frc.resize_ce_loss.launches, frc.resize_ce_loss_grad.launches)
+    n0 = (build.launch_count("resize_ce_loss"),
+          build.launch_count("resize_ce_loss_grad"))
 
     def loss(g, lab, wt):
         return frc.fused_resize_ce(g, lab, wt, hw)
 
     grads, losses = torch.func.vmap(torch.func.grad_and_value(loss))(
         grid, labels, weights)
-    assert (frc.resize_ce_loss.launches,
-            frc.resize_ce_loss_grad.launches) == n0
+    assert (build.launch_count("resize_ce_loss"),
+            build.launch_count("resize_ce_loss_grad")) == n0
     for j in range(3):
         g = grid[j].clone().requires_grad_(True)
         want = frc.fused_resize_ce(g, labels[j], weights[j], hw)
@@ -309,7 +311,7 @@ def test_kernel_node_vmap_rule_launches_once_for_all_videos(monkeypatch):
     seen = []
 
     def fake_launch(g, lab, wt, out_hw, want_grad, groups=None):
-        seen.append((tuple(g.shape), groups))
+        seen.append((tuple(g.shape), groups, want_grad))
         outs = []
         for gg, ll, ww in zip(*(t.chunk(groups) for t in (g, lab, wt))):
             gg = gg.detach().requires_grad_(True)
@@ -323,15 +325,13 @@ def test_kernel_node_vmap_rule_launches_once_for_all_videos(monkeypatch):
                 torch.cat([o[2] for o in outs]))
 
     monkeypatch.setattr(frc, "_launch", fake_launch)
-    n0 = frc.resize_ce_loss_grad.launches
 
     def loss(g, lab, wt):
         return frc._ResizeCE.apply(g, lab, wt, hw)[0] * 3.0
 
     grads, losses = torch.func.vmap(torch.func.grad_and_value(loss))(
         grid, labels, weights)
-    assert frc.resize_ce_loss_grad.launches == n0 + 1
-    assert seen == [((6, 6, 5, 9), 3)]
+    assert seen == [((6, 6, 5, 9), 3, True)]    # one launch, V groups
     for j in range(3):
         g = grid[j].clone().requires_grad_(True)
         want = frc.resize_ce_plain(g, labels[j], weights[j], hw) * 3.0
