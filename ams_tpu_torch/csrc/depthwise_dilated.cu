@@ -13,6 +13,9 @@
 //                       * x[n, oy - ph + ky r, ox - pw + kx r, c]
 //
 // (zero outside x), summed in f32 and rounded to bf16 once, at the store.
+// An optional epilogue adds a per-channel f32 bias b[c] and then, if asked,
+// takes the ReLU, both in f32 before that one rounding: the teacher's inference BN,
+// folded into w, leaves its offset here (models/xception_deeplab.py).
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): bytes.  Each output needs 9 multiply-adds (18 operations) and
@@ -43,6 +46,11 @@
 //     are in flight ahead of the row being computed.
 //   - Weights.  The thread's 9 taps of its two channels, in registers as
 //     f32 for the whole strip.
+//   - Epilogue.  A template parameter each for the bias and the ReLU, so
+//     the bias-free instantiation (the student's) is the kernel as it was
+//     (three instantiations: none, bias, bias and ReLU);
+//     with a bias, the thread's two channels' values sit in registers for
+//     the whole strip.
 //   - Filling the card.  blockIdx.x cuts the (column group, channel pair)
 //     pairs of a sub-lattice into blocks of kThreads; blockIdx.z is the
 //     image and the row strip.  The host's plan cuts the rows into strips
@@ -106,9 +114,11 @@ __device__ __forceinline__ void widen(const uint32_t (&raw)[kCols + 2],
     }
 }
 
+template <bool kBias, bool kRelu>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 depthwise_dilated_kernel(const uint32_t* __restrict__ x,
                          const uint32_t* __restrict__ wt,
+                         const float2* __restrict__ bias,
                          uint32_t* __restrict__ y, int h, int w, int c2,
                          int ho, int wo, int r, int ph, int pw, int strips,
                          int strip_rows) {
@@ -132,6 +142,8 @@ depthwise_dilated_kernel(const uint32_t* __restrict__ x,
         k[t][0] = lo_bf16(p);
         k[t][1] = hi_bf16(p);
     }
+    float2 b = make_float2(0.f, 0.f);
+    if (kBias) b = __ldg(bias + v);
 
     Walk walk;
     walk.rowlen = w * c2;
@@ -191,6 +203,9 @@ depthwise_dilated_kernel(const uint32_t* __restrict__ x,
 #pragma unroll
                         for (int kx = 0; kx < 3; ++kx)
                             acc = fmaf(k[6 + kx][ch], r2[jj + kx][ch], acc);
+                        if (kBias) acc += ch ? b.y : b.x;
+                        // NaN stays NaN, as torch.relu leaves it
+                        if (kRelu) acc = acc < 0.f ? 0.f : acc;
                         a[ch] = acc;
                     }
                     if (jj < nout) yrow[jj * r * c2] = pack_bf16(a[0], a[1]);
@@ -200,21 +215,34 @@ depthwise_dilated_kernel(const uint32_t* __restrict__ x,
     }
 }
 
+template <bool kBias, bool kRelu>
+void launch(const dim3& grid, cudaStream_t stream, const void* x,
+            const void* w, const void* bias, void* y, int h, int wdt, int c2,
+            int ho, int wo, int r, int ph, int pw, int strips,
+            int strip_rows) {
+    depthwise_dilated_kernel<kBias, kRelu><<<grid, kThreads, 0, stream>>>(
+        (const uint32_t*)x, (const uint32_t*)w, (const float2*)bias,
+        (uint32_t*)y, h, wdt, c2, ho, wo, r, ph, pw, strips, strip_rows);
+}
+
 }  // namespace
 
 // x: (n, h, wdt, c) bf16, contiguous; w: (3, 3, c) bf16, contiguous;
-// y: (n, ho, wo, c) bf16 with ho = h + 2 ph - 2 r, wo = wdt + 2 pw - 2 r.
+// bias: (c,) f32 on an 8-byte boundary, or null for none; relu: nonzero
+// for a ReLU after the bias (only with one); y: (n, ho, wo, c) bf16 with ho = h + 2 ph - 2 r,
+// wo = wdt + 2 pw - 2 r.
 // c even; the rows of each sub-lattice cut into `strips` strips of
 // `strip_rows`.  The host checks the sizes (ops/depthwise_dilated.py):
 // grid.y = r^2 and grid.z = n * strips below 65536, one image below 2^31
 // elements.
 extern "C" int depthwise_dilated_launch(const void* x, const void* w,
-                                        void* y, int n, int c, int h,
-                                        int wdt, int ho, int wo, int r,
-                                        int ph, int pw, int strips,
-                                        int strip_rows, void* stream) {
+                                        const void* bias, void* y, int n,
+                                        int c, int h, int wdt, int ho,
+                                        int wo, int r, int ph, int pw,
+                                        int strips, int strip_rows, int relu,
+                                        void* stream) {
     if (c < 2 || c % 2 || r < 1 || ph < 0 || pw < 0 || strips < 1
-        || strip_rows < 1)
+        || strip_rows < 1 || (relu && !bias))
         return (int)cudaErrorInvalidValue;
     if ((long long)n * ho * wo == 0) return 0;
     const int c2 = c / 2;
@@ -222,8 +250,15 @@ extern "C" int depthwise_dilated_launch(const void* x, const void* w,
     const long long pairs = (ws + kCols - 1) / kCols * c2;
     const dim3 grid((unsigned)((pairs + kThreads - 1) / kThreads),
                     (unsigned)(r * r), (unsigned)(n * strips));
-    depthwise_dilated_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (const uint32_t*)w, (uint32_t*)y, h, wdt, c2, ho,
-        wo, r, ph, pw, strips, strip_rows);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (!bias)
+        launch<false, false>(grid, s, x, w, bias, y, h, wdt, c2, ho, wo, r,
+                             ph, pw, strips, strip_rows);
+    else if (relu)
+        launch<true, true>(grid, s, x, w, bias, y, h, wdt, c2, ho, wo, r, ph,
+                           pw, strips, strip_rows);
+    else
+        launch<true, false>(grid, s, x, w, bias, y, h, wdt, c2, ho, wo, r,
+                            ph, pw, strips, strip_rows);
     return (int)cudaGetLastError();
 }

@@ -6,8 +6,10 @@ folds into its preceding conv:
     W' = W * gamma / sqrt(var + eps)        (per output channel)
     b' = beta - mean * gamma / sqrt(var + eps)
 
-Folding is done on the host in numpy with the JAX package's exact
-expressions, so both packages produce the same artifact bit for bit.
+The student folds on the host, in float32 with the JAX package's exact
+expressions (``fold_bn``), so both packages produce the same artifact bit
+for bit; ``xception_deeplab.fold_teacher`` folds the teacher with the same
+``fold_bn`` on its params' device.
 Folding is mathematically identical to inference-mode BN, not
 bit-identical (float re-association), so a folded client's ids agree with
 the unfolded client's off near-ties only.
@@ -54,20 +56,24 @@ def _host(v) -> np.ndarray:
         else np.asarray(v)
 
 
-def _fold(params, prefix, w_key, eps, depthwise=False):
-    g = _host(params[prefix + "/BatchNorm/gamma"])
-    b = _host(params[prefix + "/BatchNorm/beta"])
-    mean = _host(params[prefix + "/BatchNorm/moving_mean"])
-    var = _host(params[prefix + "/BatchNorm/moving_variance"])
-    scale = g / np.sqrt(var + eps)
-    w = _host(params[w_key])
-    if depthwise:
-        # depthwise weights (kh, kw, C, 1): scale along C
-        w = w * scale[None, None, :, None]
-    else:
-        w = w * scale[None, None, None, :]
-    bias = b - mean * scale
-    return w.astype(np.float32), bias.astype(np.float32)
+def fold_bn(params, prefix, w_key, eps, depthwise=False):
+    """The inference BN ``<prefix>/BatchNorm/*`` folded into the weight
+    ``w_key`` -> (W * scale, beta - mean * scale), float32 on the params'
+    device, with scale = gamma / sqrt(var + eps) per output channel: along
+    Cout of a (kh, kw, Cin, Cout) weight, along C of a depthwise
+    (kh, kw, C, 1) one.  The JAX package's expressions, in its order, so
+    the result is its numpy fold's to the bit: each step rounded once to
+    float32, the square root too (taken in float64, whose rounding to
+    float32 is the correctly rounded float32 root, as numpy's is; torch's
+    float32 root on the CPU is not always)."""
+    def f32(key):
+        return torch.as_tensor(params[key]).float()
+
+    bn = prefix + "/BatchNorm/"
+    root = torch.sqrt((f32(bn + "moving_variance") + eps).double()).float()
+    scale = f32(bn + "gamma") / root
+    w = f32(w_key) * (scale[:, None] if depthwise else scale)
+    return w, f32(bn + "beta") - f32(bn + "moving_mean") * scale
 
 
 def fold_student(params) -> Params:
@@ -76,12 +82,13 @@ def fold_student(params) -> Params:
     tensors on the device of the input (the CPU for numpy input)."""
     first = next(iter(params.values()))
     dev = first.device if isinstance(first, torch.Tensor) else "cpu"
+    host = {k: torch.tensor(_host(v)) for k, v in params.items()}
     out = {}
 
     def fold_conv(prefix, depthwise=False, eps=layers.BN_EPS):
         wk = prefix + ("/depthwise_weights" if depthwise else "/weights")
-        out[wk], out[prefix + "/folded_bias"] = _fold(params, prefix, wk, eps,
-                                                      depthwise)
+        out[wk], out[prefix + "/folded_bias"] = fold_bn(host, prefix, wk,
+                                                        eps, depthwise)
 
     fold_conv("MobilenetV2/Conv")
     for i in range(len(_BLOCKS)):
@@ -93,9 +100,9 @@ def fold_student(params) -> Params:
     fold_conv("aspp0", eps=HEAD_BN_EPS)
     fold_conv("image_pooling", eps=HEAD_BN_EPS)
     fold_conv("concat_projection", eps=HEAD_BN_EPS)
-    out["logits/semantic/weights"] = _host(params["logits/semantic/weights"])
-    out["logits/semantic/biases"] = _host(params["logits/semantic/biases"])
-    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in out.items()}
+    out["logits/semantic/weights"] = host["logits/semantic/weights"]
+    out["logits/semantic/biases"] = host["logits/semantic/biases"]
+    return {k: v.to(dev) for k, v in out.items()}
 
 
 def is_folded(params) -> bool:

@@ -21,6 +21,11 @@ window, padded in height as the whole tensor and not in width (the window
 holds the halo and the zeros); training BN takes its moments as the
 column-weighted sum of the shards'; the rest runs shard by shard.
 
+``conv2d_bias`` and ``depthwise_conv2d_bias`` add a bias per channel (and
+a ReLU) after the convolution, in its epilogue where it has one: a 1x1 at
+stride 1 as a cuBLASLt GEMM, a dilated depthwise 3x3 in the port's
+kernel; as a pass each elsewhere.  They take whole tensors, not shards.
+
 ``compute_dtype`` (None keeps the input's type) casts activation and weight
 before a convolution, as the JAX package does.  In bfloat16 the activation
 is also put in ``torch.channels_last`` memory, the NHWC storage that both
@@ -139,8 +144,8 @@ def conv2d(x, w, stride=1, rate=1, padding="SAME", *, compute_dtype=None):
 
 
 def takes_dilated_kernel(x, w, stride, rate, pad) -> bool:
-    """True where ``depthwise_conv2d`` gives a CUDA input (after ``_cast``
-    and ``_pad``) to the dilated depthwise kernel: where the kernel takes
+    """True where ``depthwise_conv2d`` gives an input (after ``_cast`` and
+    ``_pad``) to the dilated depthwise kernel: where the kernel takes
     it (``depthwise_dilated.takes``), outside ``video_batched()`` and with
     no gradient wanted.  Everything else, rate 1 among it, stays with
     ``F.conv2d``."""
@@ -150,20 +155,81 @@ def takes_dilated_kernel(x, w, stride, rate, pad) -> bool:
             and depthwise_dilated.takes(x, w, stride, rate, pad))
 
 
+def _depthwise_route(x, w, stride, rate, padding, compute_dtype):
+    """``_cast`` and ``_pad`` -> (x, w, pad, True where the dilated
+    depthwise kernel takes it): on the card the kernel, on the CPU its
+    plain version, the same ``F.conv2d`` call as the other route."""
+    x, w = _cast(x, w, compute_dtype)
+    x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
+    return x, w, pad, takes_dilated_kernel(x, w, stride, rate, pad)
+
+
+def _depthwise_library(x, w, stride, rate, pad):
+    return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
+                    dilation=rate, groups=w.shape[2])
+
+
 def depthwise_conv2d(x, w, stride=1, rate=1, padding="SAME", *,
                      compute_dtype=None):
     """Depthwise conv; ``w`` is TF-layout (kh, kw, C, 1); ``padding`` as
-    in ``conv2d``.  On the card a dilated 3x3 goes to the port's kernel
-    where ``takes_dilated_kernel`` holds."""
+    in ``conv2d``.  A dilated 3x3 goes to the port's kernel where
+    ``takes_dilated_kernel`` holds."""
     if isinstance(x, spatial.WidthShards):
         return _over_width(depthwise_conv2d, x, w, stride, rate, padding,
                            compute_dtype)
-    x, w = _cast(x, w, compute_dtype)
-    x, pad = _pad(x, w.shape[0], w.shape[1], stride, rate, padding)
-    if x.is_cuda and takes_dilated_kernel(x, w, stride, rate, pad):
+    x, w, pad, kernel = _depthwise_route(x, w, stride, rate, padding,
+                                         compute_dtype)
+    if kernel:
         return depthwise_dilated.depthwise_dilated(x, w, rate, pad)
-    return F.conv2d(x, w.permute(2, 3, 0, 1), stride=stride, padding=pad,
-                    dilation=rate, groups=w.shape[2])
+    return _depthwise_library(x, w, stride, rate, pad)
+
+
+def _bias_pass(y, b, relu):
+    """``y`` plus the bias ``b`` per channel, then the ReLU where
+    ``relu``: one pass each, in place, the sum rounded to ``y``'s type."""
+    y = y.add_(b[:, None, None])
+    return y.relu_() if relu else y
+
+
+def conv2d_bias(x, w, b, stride=1, rate=1, padding="SAME", *,
+                compute_dtype=None, relu=False):
+    """``conv2d`` plus the bias ``b`` (Cout,) per output channel, then the
+    ReLU where ``relu`` -> (y, True where the bias rode in the
+    convolution's epilogue).
+
+    A 1x1 convolution at stride 1 whose input is channels-last
+    contiguous (after ``_cast``: bfloat16 always is) is a GEMM on the
+    input's (N*H*W, Cin) view, and its result, row-major (N*H*W, Cout),
+    is the channels-last output: ``addmm`` adds the bias (in the input's
+    type) in cuBLASLt's epilogue, ``_addmm_activation`` the bias and the
+    ReLU (on an H100 with torch 2.11 at every row count of the teacher's,
+    4.2 M among them).  Anything else adds them as one pass each."""
+    x, w = _cast(x, w, compute_dtype)
+    if w.shape[:2] != (1, 1) or stride != 1 \
+            or not x.is_contiguous(memory_format=torch.channels_last):
+        return _bias_pass(conv2d(x, w, stride, rate, padding), b, relu), \
+            False
+    n, c, h, wd = x.shape
+    a = x.permute(0, 2, 3, 1).reshape(-1, c)
+    gemm = torch._addmm_activation if relu else torch.addmm
+    y = gemm(b.to(x.dtype), a, w.reshape(c, w.shape[3]))
+    return y.view(n, h, wd, -1).permute(0, 3, 1, 2), True
+
+
+def depthwise_conv2d_bias(x, w, b, stride=1, rate=1, padding="SAME", *,
+                          compute_dtype=None, relu=False):
+    """``depthwise_conv2d`` plus the float32 bias ``b`` (C,) per channel,
+    then the ReLU where ``relu`` -> (y, True where the bias rode in the
+    convolution's epilogue): the dilated depthwise kernel's (on the CPU,
+    its plain version, which adds them in float32 before one rounding as
+    the kernel does), else one pass each after ``F.conv2d``."""
+    x, w, pad, kernel = _depthwise_route(x, w, stride, rate, padding,
+                                         compute_dtype)
+    if kernel:
+        return depthwise_dilated.depthwise_dilated(
+            x, w, rate, pad, bias=b, relu=relu), True
+    return _bias_pass(_depthwise_library(x, w, stride, rate, pad), b,
+                      relu), False
 
 
 def conv2d_stride2_s2d(x, w, *, compute_dtype=None):

@@ -54,6 +54,17 @@ extract_labels):
   convolutions leave their outputs channels-last (``layers``), and the
   grid logits go to the fused upsample+argmax kernel as they are.
 
+``fold_teacher`` folds every inference BN into the convolution before it,
+as the labeler's bfloat16 path runs the teacher.  One forward takes either
+params: raw ones run each BN unfused, as above (the float32 path, width
+shards, the sharded labeler); on folded ones each convolution adds its
+BN's offset (and the ReLU after it) in its epilogue where it has one, a
+1x1 at stride 1 (a cuBLASLt GEMM) or a dilated depthwise 3x3 (the port's
+kernel), and as one pass each elsewhere: the stems, rate-1 and stride-2
+depthwise convolutions, stride-2 shortcuts.  Counters
+(``GLOBAL_TIMER.count``): ``teacher/bn_epilogue`` per offset in an
+epilogue, ``teacher/bn_pass`` per offset added as a pass.
+
 Spans (``utils.trace.GLOBAL_TIMER``): ``teacher/trunk`` (the trunk),
 ``teacher/aspp`` (image pooling to the concat projection) and, with a
 decoder, ``teacher/decoder``; the logits' 1x1 convolution lies in none.
@@ -75,7 +86,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ams_tpu_torch.models import layers
+from ams_tpu_torch.models import frozen, layers
 from ams_tpu_torch.models.mobilenetv2_deeplab import (
     _class_index,
     _two_over_255,
@@ -251,12 +262,71 @@ def init_teacher_params(rng=0, num_classes: int = 19, device=None,
     return {k: v.to(dev) for k, v in params.items()}
 
 
+def fold_teacher(params: Params, dtype=torch.float32) -> Params:
+    """Teacher params -> BN-folded params, as ``frozen.fold_student`` folds
+    the student's, by the same ``frozen.fold_bn``: each inference BN's
+    scale into the convolution before it and its offset into a
+    ``<conv>/folded_bias``, with each BN's own eps (``layers.BN_EPS`` in
+    the trunk, under ``xception_65/``; ``HEAD_BN_EPS`` in the head and the
+    decoder).  Every BN of the configuration folds, the trunk's, the
+    ASPP's, the image pooling's and the decoder's alike; the logits layer
+    is untouched.  Computed in float32 on the params' device, then cast
+    once to the types the forward consumes: the weights to ``dtype`` (the
+    labeler's bfloat16), a full convolution's offset to ``dtype`` (the
+    GEMM's epilogue and the pass add it in the activation's type), a
+    depthwise convolution's kept float32 (the dilated kernel adds it to
+    its f32 sum, a pass before the one rounding)."""
+    out = {}
+    for key in params:
+        if not key.endswith("/BatchNorm/gamma"):
+            continue
+        prefix = key[:-len("/BatchNorm/gamma")]
+        eps = layers.BN_EPS if prefix.startswith(_p("")) else HEAD_BN_EPS
+        depthwise = prefix + "/depthwise_weights" in params
+        wk = prefix + ("/depthwise_weights" if depthwise else "/weights")
+        w, b = frozen.fold_bn(params, prefix, wk, eps, depthwise)
+        out[wk] = w.to(dtype)
+        out[prefix + "/folded_bias"] = b if depthwise else b.to(dtype)
+    for k in ("logits/semantic/weights", "logits/semantic/biases"):
+        out[k] = params[k]
+    return out
+
+
 def _bn(params, prefix, x, eps=layers.BN_EPS):
     return layers.batch_norm_infer(
         x, params[prefix + "/BatchNorm/gamma"],
         params[prefix + "/BatchNorm/beta"],
         params[prefix + "/BatchNorm/moving_mean"],
         params[prefix + "/BatchNorm/moving_variance"], eps=eps)
+
+
+def _conv_bn(params, prefix, x, *, depthwise=False, stride=1, rate=1,
+             padding="SAME", cd=torch.float32, eps=layers.BN_EPS,
+             relu=False):
+    """The convolution ``prefix``, its inference BN and, where ``relu``, a
+    ReLU.  Raw params run them unfused: the convolution, ``_bn``, then
+    ``layers.relu``.  Folded params (``fold_teacher``: a
+    ``<prefix>/folded_bias``) run the convolution on the scaled weights
+    and add the offset and the ReLU in its epilogue where it has one
+    (``layers.conv2d_bias``, ``layers.depthwise_conv2d_bias``), counted
+    as ``teacher/bn_epilogue``, else as one pass each, counted as
+    ``teacher/bn_pass``.  Folded params refuse width shards."""
+    wk = prefix + ("/depthwise_weights" if depthwise else "/weights")
+    bias = params.get(prefix + "/folded_bias")
+    if bias is None:
+        conv = layers.depthwise_conv2d if depthwise else layers.conv2d
+        x = _bn(params, prefix, conv(x, params[wk], stride=stride, rate=rate,
+                                     padding=padding, compute_dtype=cd),
+                eps=eps)
+        return layers.relu(x) if relu else x
+    if isinstance(x, spatial.WidthShards):
+        raise ValueError("folded teacher params run on whole frames, not "
+                         "width shards: shard the raw params' forward")
+    conv = layers.depthwise_conv2d_bias if depthwise else layers.conv2d_bias
+    x, fused = conv(x, params[wk], bias, stride=stride, rate=rate,
+                    padding=padding, compute_dtype=cd, relu=relu)
+    GLOBAL_TIMER.count("teacher/bn_epilogue" if fused else "teacher/bn_pass")
+    return x
 
 
 def _sep_conv(params, prefix, x, stride=1, rate=1, cd=torch.float32,
@@ -269,16 +339,11 @@ def _sep_conv(params, prefix, x, stride=1, rate=1, cd=torch.float32,
     if not relu_after:
         x = layers.relu(x)
     pad = _FIXED_PAD_3X3 if stride > 1 else "SAME"
-    x = layers.depthwise_conv2d(
-        x, params[prefix + "_depthwise/depthwise_weights"], stride=stride,
-        rate=rate, padding=pad, compute_dtype=cd)
-    x = _bn(params, prefix + "_depthwise", x, eps=eps)
-    if relu_after:
-        x = layers.relu(x)
-    x = layers.conv2d(x, params[prefix + "_pointwise/weights"],
-                      compute_dtype=cd)
-    x = _bn(params, prefix + "_pointwise", x, eps=eps)
-    return layers.relu(x) if relu_after else x
+    x = _conv_bn(params, prefix + "_depthwise", x, depthwise=True,
+                 stride=stride, rate=rate, padding=pad, cd=cd, eps=eps,
+                 relu=relu_after)
+    return _conv_bn(params, prefix + "_pointwise", x, cd=cd, eps=eps,
+                    relu=relu_after)
 
 
 def xception_backbone(params: Params, x: torch.Tensor, *,
@@ -288,12 +353,9 @@ def xception_backbone(params: Params, x: torch.Tensor, *,
     (B, 3, H, W) input -> (B, 2048, h/os, w/os); with a decoder, the pair
     of that and the stride-4 endpoint (B, 256, h/4, w/4)."""
     cd = layers.as_dtype(compute_dtype)
-    x = layers.conv2d(x, params[_p("entry_flow/conv1_1/weights")], stride=2,
-                      padding=_FIXED_PAD_3X3, compute_dtype=cd)
-    x = layers.relu(_bn(params, _p("entry_flow/conv1_1"), x))
-    x = layers.conv2d(x, params[_p("entry_flow/conv1_2/weights")],
-                      compute_dtype=cd)
-    x = layers.relu(_bn(params, _p("entry_flow/conv1_2"), x))
+    x = _conv_bn(params, _p("entry_flow/conv1_1"), x, stride=2,
+                 padding=_FIXED_PAD_3X3, cd=cd, relu=True)
+    x = _conv_bn(params, _p("entry_flow/conv1_2"), x, cd=cd, relu=True)
 
     keep = config.decoder_output_stride is not None
     end_point = None
@@ -309,9 +371,8 @@ def xception_backbone(params: Params, x: torch.Tensor, *,
             if keep and (scope, i + 1) == _DECODER_END_POINT:
                 end_point = x
         if res == "conv":
-            sc = layers.conv2d(inp, params[base + "/shortcut/weights"],
-                               stride=stride, compute_dtype=cd)
-            x = x + _bn(params, base + "/shortcut", sc)
+            x = x + _conv_bn(params, base + "/shortcut", inp, stride=stride,
+                             cd=cd)
         elif res == "sum":
             x = x + inp
     return (x, end_point) if keep else x
@@ -322,23 +383,19 @@ def _aspp(params: Params, feat, config: TeacherConfig, cd):
     concatenated and projected: (B, 256, h, w) after its ReLU."""
     pooled = spatial.mean(spatial.apply(feat, lambda t: t.float()), (2, 3),
                           keepdim=True)
-    pooled = layers.conv2d(pooled, params["image_pooling/weights"],
-                           compute_dtype=cd)
-    pooled = torch.relu(_bn(params, "image_pooling", pooled,
-                            eps=HEAD_BN_EPS))
+    pooled = _conv_bn(params, "image_pooling", pooled, cd=cd,
+                      eps=HEAD_BN_EPS, relu=True)
 
-    branches = []
-    a0 = layers.conv2d(feat, params["aspp0/weights"], compute_dtype=cd)
-    branches.append(layers.relu(_bn(params, "aspp0", a0, eps=HEAD_BN_EPS)))
+    branches = [_conv_bn(params, "aspp0", feat, cd=cd, eps=HEAD_BN_EPS,
+                         relu=True)]
     for i, rate in enumerate(aspp_rates(config), start=1):
         branches.append(_sep_conv(params, "aspp%d" % i, feat, rate=rate,
                                   cd=cd, relu_after=True, eps=HEAD_BN_EPS))
     pooled = spatial.broadcast(pooled.to(branches[0].dtype), branches[0])
 
     x = spatial.cat_channels([pooled] + branches)
-    x = layers.conv2d(x, params["concat_projection/weights"],
-                      compute_dtype=cd)
-    return layers.relu(_bn(params, "concat_projection", x, eps=HEAD_BN_EPS))
+    return _conv_bn(params, "concat_projection", x, cd=cd, eps=HEAD_BN_EPS,
+                    relu=True)
 
 
 def deeplab_decoder(params: Params, x: torch.Tensor, end_point: torch.Tensor,
@@ -350,11 +407,8 @@ def deeplab_decoder(params: Params, x: torch.Tensor, end_point: torch.Tensor,
     ``decoder_conv1``, each a split separable convolution (3x3 depthwise,
     BN, ReLU, 1x1 to 256, BN, ReLU) -> (B, 256, h/4, w/4)."""
     cd = layers.as_dtype(compute_dtype)
-    proj = layers.conv2d(end_point,
-                         params["decoder/feature_projection0/weights"],
-                         compute_dtype=cd)
-    proj = layers.relu(_bn(params, "decoder/feature_projection0", proj,
-                           eps=HEAD_BN_EPS))
+    proj = _conv_bn(params, "decoder/feature_projection0", end_point, cd=cd,
+                    eps=HEAD_BN_EPS, relu=True)
     x = resize_nchw(x, proj.shape[2:])
     x = torch.cat([x, proj.to(x.dtype)], dim=1)
     for i in range(2):

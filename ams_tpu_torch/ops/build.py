@@ -65,7 +65,7 @@ ENTRY_POINTS = {
         "mbconv_resident": (_I, (_I,) * 3),
     },
     "depthwise_dilated": {
-        "depthwise_dilated_launch": (_I, (_P,) * 3 + (_I,) * 11 + (_P,)),
+        "depthwise_dilated_launch": (_I, (_P,) * 4 + (_I,) * 12 + (_P,)),
     },
 }
 

@@ -14,7 +14,9 @@ convolution indexed in place; a thread takes one channel pair and a few
 columns of a sub-lattice and walks down its rows with three input rows in
 registers, so each input element is read from device memory about once
 whatever the rate.  Padding is applied in the kernel (no ``F.pad``);
-sums are f32 and round to bf16 once.
+sums are f32 and round to bf16 once.  An optional epilogue adds a
+per-channel f32 bias and takes the ReLU before that rounding: the
+teacher's folded inference BN leaves its offset there.
 
 ``depthwise_dilated`` is the wrapper: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, and nothing falls back from one to
@@ -53,12 +55,24 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def depthwise_dilated_plain(x: torch.Tensor, w: torch.Tensor, rate: int,
-                            padding) -> torch.Tensor:
+                            padding, bias=None,
+                            relu: bool = False) -> torch.Tensor:
     """The depthwise convolution of ``x`` (B, C, H, W) with the TF-layout
     weight ``w`` (3, 3, C, 1) at stride 1, dilation ``rate`` and the zero
-    padding ``(ph, pw)`` on each side, by ``F.conv2d``."""
-    return F.conv2d(x, w.permute(2, 3, 0, 1), stride=1, padding=padding,
-                    dilation=rate, groups=w.shape[2])
+    padding ``(ph, pw)`` on each side, by ``F.conv2d``.  With a ``bias``
+    (C,) or ``relu``, the convolution runs in float32, adds the bias and
+    takes the ReLU there, and rounds to ``x``'s type once, as the
+    kernel's epilogue does."""
+    if bias is None and not relu:
+        return F.conv2d(x, w.permute(2, 3, 0, 1), stride=1, padding=padding,
+                        dilation=rate, groups=w.shape[2])
+    y = F.conv2d(x.float(), w.float().permute(2, 3, 0, 1), stride=1,
+                 padding=padding, dilation=rate, groups=w.shape[2])
+    if bias is not None:
+        y = y + bias.float()[:, None, None]
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype, memory_format=torch.channels_last)
 
 
 class Plan(NamedTuple):
@@ -97,7 +111,7 @@ def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _refusal(x, w, rate, padding):
+def _refusal(x, w, rate, padding, bias=None, relu=False):
     """-> None where the kernel takes this input, else the exception
     that says why not."""
     if x.dim() != 4:
@@ -134,6 +148,14 @@ def _refusal(x, w, rate, padding):
         return ValueError("one image spans 2^31 elements or more")
     if w.device != x.device:
         return ValueError("x on %s, w on %s" % (x.device, w.device))
+    if relu and bias is None:
+        return ValueError("the ReLU rides in the bias epilogue: give a bias")
+    if bias is not None and (tuple(bias.shape) != (c,)
+                             or bias.dtype != torch.float32
+                             or bias.device != x.device):
+        return ValueError("bias must be (%d,) float32 on %s; got %s %s on %s"
+                          % (c, x.device, tuple(bias.shape), bias.dtype,
+                             bias.device))
     return None
 
 
@@ -149,7 +171,8 @@ def takes(x: torch.Tensor, w: torch.Tensor, stride: int, rate: int,
 
 
 def depthwise_dilated(x: torch.Tensor, w: torch.Tensor, rate: int,
-                      padding) -> torch.Tensor:
+                      padding, bias=None, relu: bool = False
+                      ) -> torch.Tensor:
     """Depthwise 3x3 convolution at stride 1 and dilation ``rate``.
 
     Args:
@@ -157,19 +180,22 @@ def depthwise_dilated(x: torch.Tensor, w: torch.Tensor, rate: int,
         w: (3, 3, C, 1) bfloat16, TF's depthwise layout.
         rate: the dilation, 1 to 255.
         padding: (ph, pw), the zeros on each side of the height and width.
+        bias: None, or (C,) float32 added to each channel's f32 sum.
+        relu: take the ReLU after the bias, before the rounding (with a
+            bias only).
 
     Returns:
         (B, C, H + 2 ph - 2 rate, W + 2 pw - 2 rate) bfloat16,
         channels-last, on x's device.
     """
-    err = _refusal(x, w, rate, padding)
+    err = _refusal(x, w, rate, padding, bias, relu)
     if err is not None:
         raise err
     ph, pw = padding
     n, c, h, wdt = x.shape
     ho, wo = h + 2 * ph - 2 * rate, wdt + 2 * pw - 2 * rate
     if x.device.type == "cpu":
-        return depthwise_dilated_plain(x, w, rate, (ph, pw))
+        return depthwise_dilated_plain(x, w, rate, (ph, pw), bias, relu)
     if x.device.type != "cuda":
         raise ValueError("depthwise_dilated runs on cpu or cuda tensors, "
                          "not %s" % x.device)
@@ -181,13 +207,18 @@ def depthwise_dilated(x: torch.Tensor, w: torch.Tensor, rate: int,
     wk = w.reshape(9, c).contiguous()
     if wk.data_ptr() % 4:
         wk = wk.clone()
+    if bias is not None:
+        bias = bias.contiguous()
+        if bias.data_ptr() % 8:
+            bias = bias.clone()
     out = torch.empty((n, c, ho, wo), dtype=torch.bfloat16, device=x.device,
                       memory_format=torch.channels_last)
     build.launch(
         "depthwise_dilated", "depthwise_dilated", index,
-        (x.data_ptr(), wk.data_ptr(), out.data_ptr(), n, c, h, wdt, ho, wo,
-         rate, ph, pw, plan.strips, plan.strip_rows),
-        lambda: "x %s, rate %d, padding %s" % (tuple(x.shape), rate,
-                                               (ph, pw)))
+        (x.data_ptr(), wk.data_ptr(),
+         None if bias is None else bias.data_ptr(), out.data_ptr(), n, c, h,
+         wdt, ho, wo, rate, ph, pw, plan.strips, plan.strip_rows, int(relu)),
+        lambda: "x %s, rate %d, padding %s, bias %s, relu %s"
+        % (tuple(x.shape), rate, (ph, pw), bias is not None, relu))
     GLOBAL_TIMER.count("layers/depthwise_dilated")
     return out

@@ -10,8 +10,11 @@ is the one label path: ``extract_labels`` labels through it.  PNG
 writing, cv2's resize and ``addWeighted`` come from ``data/image.py``; the
 clip is a frame directory (``data/video.py``).
 
-The default bfloat16 path ends in the fused upsample+argmax kernel
-(``teacher_predict_fast``, one launch per chunk); float32 takes the
+The default bfloat16 path folds the teacher's inference BN into its
+convolutions once, at load (``fold_teacher``: bf16 weights, offsets
+added where each convolution writes its output), and ends in the fused
+upsample+argmax kernel (``teacher_predict_fast``, one launch per chunk);
+float32 keeps the raw params, BN unfused, and takes the
 argmax of the full-resolution logits, as the JAX package's
 ``teacher_outputs(...)["predictions"]``.  Frames go to the device as
 uint8 and are cast there.  Labels do not depend on the chunk size:
@@ -42,6 +45,7 @@ from ams_tpu_torch.models import layers
 from ams_tpu_torch.models.xception_deeplab import (
     TEACHER_OS16,
     TeacherConfig,
+    fold_teacher,
     init_teacher_params,
     teacher_predict_fast,
     teacher_predictions,
@@ -151,7 +155,8 @@ def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
     ``device`` (default the card) in fixed ``batch``-size chunks
     (``_predict_fixed_batch``), and drops the padded row and column.
     ``batch=None`` resolves from the first call's (unpadded) frame height
-    by ``auto_batch`` and then stays.  Without a checkpoint the teacher is
+    by ``auto_batch`` and then stays.  In bfloat16 the params are folded
+    at load (``fold_teacher``).  Without a checkpoint the teacher is
     seeded synthetic (for tests and demos); a named but missing path
     raises.  ``teacher_config`` chooses the teacher
     (``models.xception_deeplab.TeacherConfig``; None: the AMS teacher).
@@ -163,6 +168,8 @@ def make_teacher_labeler(teacher_checkpoint: Optional[str] = None,
     dev = resolve_device(device)
     params = _load_teacher_params(teacher_checkpoint, seed, dev,
                                   teacher_config)
+    if layers.as_dtype(compute_dtype) == torch.bfloat16:
+        params = fold_teacher(params, torch.bfloat16)
     predict = _make_predict(compute_dtype, dev, teacher_config)
     resolved = {"batch": batch}
 

@@ -26,7 +26,9 @@ each kernel of the paths on the card:
    gradient, up to 256 classes; the fused MBConv block through K3's and
    K4's wrappers, against the unfused bf16 block, whose depthwise stays
    on cuDNN; the dilated depthwise kernel against cuDNN at the teacher's
-   and the student's dilated shapes, one at batch 1 in row strips);
+   and the student's dilated shapes, one at batch 1 in row strips, and
+   its bias and bias+ReLU epilogues, which the BN-folded teacher runs,
+   against the f32 convolution plus bias rounded once);
 3. the f32 client path, with every launch counter set to 0 just before it:
    predict_input on full-class and class-subset clients, delta apply on the
    float16 and int8d wires, predict again, BN-folded export, reload,
@@ -1391,17 +1393,40 @@ def grad_rel_error(got, want):
     return worst, worst_key
 
 
+def _dw_excess(got, want, x, wt, r, pad, b=None):
+    """-> (how far ``got`` lies beyond ``want``'s bar, the most ulps off):
+    both sum nine f32 products (and the bias) and round to bf16 once, in
+    other orders, so they differ by one bf16 ulp of the result plus what
+    the two f32 sums can differ by, 2^-24 per term on each side of the
+    sum of the terms' magnitudes (18 x 2^-24, or 20 with the bias)."""
+    import torch
+    import torch.nn.functional as F
+
+    mags = F.conv2d(x.float().abs(), wt.float().abs().permute(2, 3, 0, 1),
+                    padding=pad, dilation=r, groups=x.shape[1])
+    terms = 9
+    if b is not None:
+        mags += b.abs()[:, None, None]
+        terms = 10
+    g, v = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), v.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    excess = float(((g - v).abs() - ulp
+                    - 2 * terms * 2.0 ** -24 * mags).max())
+    return excess, float(((g - v).abs() / ulp).max())
+
+
 def phase_dw_checks(dev):
     """Phase 2, DW: the dilated depthwise kernel through its wrapper
     against ``depthwise_dilated_plain`` (``F.conv2d``, that is cuDNN) at
-    ``DW_CASES``, with TF's SAME padding and a width shard's (rate, 0).
-    Both sum nine f32 products and round to bf16 once, in other orders:
-    the kernel is held within one bf16 ulp of the result plus what the
-    two f32 sums can differ by, 18 x 2^-24 of the sum of the products'
-    magnitudes.  Timed by CUDA events beside the bytes bound: input read
-    once, output written once."""
+    ``DW_CASES``, with TF's SAME padding and a width shard's (rate, 0),
+    within ``_dw_excess``'s bar.  Then its epilogues, which the
+    BN-folded teacher's dilated convolutions run: a seeded f32 bias, with
+    and without the ReLU, against the plain version's f32 convolution
+    plus the bias (then the ReLU) rounded once (TF32 off), one launch a
+    call.  Timed by CUDA events beside the bytes bound: input read once,
+    output written once (and the bias read once)."""
     import torch
-    import torch.nn.functional as F
     from ams_tpu_torch.ops import build
     from ams_tpu_torch.ops import depthwise_dilated as dd
 
@@ -1413,49 +1438,66 @@ def phase_dw_checks(dev):
         x = torch.randn(n, c, h, w, generator=gen).to(dev).to(
             bf16, memory_format=torch.channels_last)
         wt = (torch.randn(3, 3, c, 1, generator=gen) * 0.5).to(dev).to(bf16)
-        worst = 0.0
-        for pad in ((r, r), (r, 0)):
-            before = build.launch_count("depthwise_dilated")
-            got = dd.depthwise_dilated(x, wt, r, pad)
-            want = dd.depthwise_dilated_plain(x, wt, r, pad)
-            torch.cuda.synchronize()
-            check(build.launch_count("depthwise_dilated") == before + 1,
-                  "DW: one call launched %d kernels"
-                  % (build.launch_count("depthwise_dilated") - before))
-            mags = F.conv2d(x.float().abs(),
-                            wt.float().abs().permute(2, 3, 0, 1),
-                            padding=pad, dilation=r, groups=c)
-            g, v = got.float(), want.float()
-            _, e = torch.frexp(torch.maximum(g.abs(), v.abs()))
-            ulp = torch.ldexp(torch.ones_like(g), e - 8)
-            excess = float(((g - v).abs() - ulp
-                            - 18 * 2.0 ** -24 * mags).max())
-            ulps = float(((g - v).abs() / ulp).max())
-            check(got.shape == want.shape and excess <= 0
-                  and got.is_contiguous(memory_format=torch.channels_last),
-                  "DW %s rate %d pad %s: %g beyond an ulp of cuDNN"
-                  % ((n, c, h, w), r, pad, excess))
-            worst = max(worst, ulps)
-            del got, want, mags, g, v, e, ulp
+        b = (torch.randn(c, generator=gen) * 0.5).to(dev)
+        worst = worst_epi = 0.0
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for pad in ((r, r), (r, 0)):
+                for bias, relu in ((None, False), (b, False), (b, True)):
+                    before = build.launch_count("depthwise_dilated")
+                    got = dd.depthwise_dilated(x, wt, r, pad, bias, relu)
+                    want = dd.depthwise_dilated_plain(x, wt, r, pad, bias,
+                                                      relu)
+                    torch.cuda.synchronize()
+                    check(build.launch_count("depthwise_dilated")
+                          == before + 1,
+                          "DW: one call launched %d kernels"
+                          % (build.launch_count("depthwise_dilated")
+                             - before))
+                    excess, ulps = _dw_excess(got, want, x, wt, r, pad,
+                                              bias)
+                    check(got.shape == want.shape and excess <= 0
+                          and got.is_contiguous(
+                              memory_format=torch.channels_last)
+                          and not (relu and bool((got < 0).any())),
+                          "DW %s rate %d pad %s bias %s relu %s: %g beyond "
+                          "an ulp of the plain version"
+                          % ((n, c, h, w), r, pad, bias is not None, relu,
+                             excess))
+                    if bias is None:
+                        worst = max(worst, ulps)
+                    else:
+                        worst_epi = max(worst_epi, ulps)
+                    del got, want
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
         ho, wo = h, w
         plan = dd.depthwise_dilated_plan(n, c, ho, wo, r, sms)
         k_ms = cuda_ms(lambda: dd.depthwise_dilated(x, wt, r, (r, r)), 20)
+        e_ms = cuda_ms(lambda: dd.depthwise_dilated(x, wt, r, (r, r), b,
+                                                    True), 20)
         l_ms = cuda_ms(lambda: dd.depthwise_dilated_plain(x, wt, r, (r, r)),
                        5)
         bound = (2 * n * c * ho * wo + 9 * c) * 2 / HBM_BYTES_PER_S * 1e3
+        e_bound = bound + 4 * c / HBM_BYTES_PER_S * 1e3
         row = {"case": "x".join(map(str, (n, c, h, w))) + " rate %d" % r,
                "shape": [n, c, h, w, r], "max_ulps": worst,
                "kernel_ms": k_ms, "library_ms": l_ms, "bound_ms": bound,
                "bound_share": bound / k_ms,
+               "epilogue_max_ulps": worst_epi, "epilogue_ms": e_ms,
+               "epilogue_bound_ms": e_bound,
+               "epilogue_bound_share": e_bound / e_ms,
                "plan": {"strips": plan.strips, "strip_rows": plan.strip_rows,
                         "blocks": plan.blocks}}
         log("  DW %s: within %.2g ulp of cuDNN at both paddings; kernel "
             "%.4f ms (%.1f%% of its bound %.4f ms), cuDNN channels-last "
-            "%.4f ms; plan %s" % (row["case"], worst, k_ms,
-                                  100 * bound / k_ms, bound, l_ms,
-                                  row["plan"]))
+            "%.4f ms; bias+ReLU epilogue within %.2g ulp of f32 rounded "
+            "once, %.4f ms (%.1f%% of its bound); plan %s"
+            % (row["case"], worst, k_ms, 100 * bound / k_ms, bound, l_ms,
+               worst_epi, e_ms, 100 * e_bound / e_ms, row["plan"]))
         out.append(row)
-        del x, wt
+        del x, wt, b
     check(any(c["plan"]["strips"] > 1 for c in out),
           "DW: no case ran the row-strip path")
     return out
@@ -4927,6 +4969,8 @@ def main() -> int:
         "replaces": dd.REPLACES,
         "launches": labeler_runs["full size"]["dw_launches"],
         "max_ulps": max(c["max_ulps"] for c in dw_cases),
+        "epilogue_max_ulps": max(c["epilogue_max_ulps"] for c in dw_cases),
+        "epilogue_ms": dw_main["epilogue_ms"],
         "ms": dw_main["kernel_ms"], "kernel_ms": dw_main["kernel_ms"],
         "plain_ms": dw_main["library_ms"],
         "library_ms": dw_main["library_ms"],
@@ -4947,10 +4991,12 @@ def main() -> int:
         "cases": dw_cases})
     for c in dw_cases:
         log("depthwise_dilated %s: %.4f ms per call (bound %.4f, %.1f%%); "
-            "cuDNN channels-last %.4f ms; max %.2g ulp; plan %s"
+            "cuDNN channels-last %.4f ms; max %.2g ulp; bias+ReLU epilogue "
+            "%.4f ms (%.1f%% of its bound), max %.2g ulp; plan %s"
             % (c["case"], c["kernel_ms"], c["bound_ms"],
                100 * c["bound_share"], c["library_ms"], c["max_ulps"],
-               c["plan"]))
+               c["epilogue_ms"], 100 * c["epilogue_bound_share"],
+               c["epilogue_max_ulps"], c["plan"]))
     ce_main = ce_cases[0]
     for part, key in (("loss", "loss_abs_err"),
                       ("loss_grad", "grad_max_abs_err")):

@@ -9,9 +9,14 @@ never launches it.  A torch emulation of the kernel's index arithmetic
 never read) writes every output once and agrees with the plain version
 within the rounding both have: f32 sums rounded to bf16 once.
 
+With a bias and a ReLU (the folded teacher's epilogue) the plain version
+computes in float32 and rounds once, as the kernel does.
+
 The ``cuda``-marked tests run on the card: the kernel against cuDNN at
-every dilated shape of the benchmark's three cells, and one OS8 chunk of
-the teacher through ``teacher_predict_fast`` against the cuDNN route.
+every dilated shape of the benchmark's three cells (bit for bit without
+an epilogue), its bias and bias+ReLU epilogues against a float32
+reference rounded once, and one OS8 chunk of the teacher through
+``teacher_predict_fast`` against the cuDNN route, raw and folded.
 This file imports no JAX, so on a card machine it runs as
 ``python -m pytest --noconftest -m cuda tests/test_torch_depthwise_dilated.py``.
 """
@@ -45,17 +50,28 @@ def _weight(c, seed, device="cpu"):
     return (torch.randn((3, 3, c, 1), generator=g) * 0.5).to(device)
 
 
-def _agree(got, want, x, w, rate, padding):
-    """Both sum nine f32 products and round to bf16 once, in other orders:
-    they differ by at most one bf16 ulp of the result, plus what the two
-    f32 sums can differ by (9 roundings of 2^-24 each, on both sides, of
-    the sum of the products' magnitudes) where the sum cancels."""
+def _bias(c, seed, device="cpu"):
+    g = torch.Generator().manual_seed(seed + 2)
+    return (torch.randn(c, generator=g) * 0.5).to(device)
+
+
+def _agree(got, want, x, w, rate, padding, bias=None):
+    """Both sum nine f32 products (and the bias) and round to bf16 once,
+    in other orders: they differ by at most one bf16 ulp of the result,
+    plus what the two f32 sums can differ by (a rounding of 2^-24 per
+    term, 9 or with the bias 10, on both sides, of the sum of the terms'
+    magnitudes) where the sum cancels.  A ReLU after the sum moves
+    neither bound."""
     got, want = got.float(), want.float()
     mags = F.conv2d(x.float().abs(), w.float().abs().permute(2, 3, 0, 1),
                     padding=padding, dilation=rate, groups=x.shape[1])
+    terms = 9
+    if bias is not None:
+        mags = mags + bias.float().abs()[:, None, None]
+        terms = 10
     _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
     ulp = torch.ldexp(torch.ones_like(got), e - 8)
-    tol = ulp + 18 * 2.0 ** -24 * mags
+    tol = ulp + 2 * terms * 2.0 ** -24 * mags
     excess = ((got - want).abs() - tol).max().item()
     assert excess <= 0, "off by %g beyond an ulp" % excess
     return ((got - want).abs() / ulp).max().item()
@@ -85,6 +101,60 @@ def test_plain_is_the_conv2d_path_bit_for_bit(dtype, rate, pads):
     if dtype == "bfloat16":
         assert torch.equal(dd.depthwise_dilated(x, wt.to(x.dtype), rate,
                                                 padding), want)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("rate", [2, 5])
+def test_plain_epilogue_is_f32_rounded_once(rate, relu):
+    """With a bias (and a ReLU) the plain version is the float32
+    convolution plus the bias (then the ReLU), rounded to bf16 once,
+    channels-last; the wrapper's CPU route is the plain version; without
+    either it is the bf16 ``F.conv2d`` as before."""
+    x = _input((2, 12, 2 * rate + 6, 2 * rate + 5), rate)
+    w = _weight(12, rate).to(torch.bfloat16)
+    b = _bias(12, rate)
+    want = F.conv2d(x.float(), w.float().permute(2, 3, 0, 1),
+                    padding=(rate, rate), dilation=rate, groups=12) \
+        + b[:, None, None]
+    if relu:
+        want = torch.relu(want)
+    got = dd.depthwise_dilated_plain(x, w, rate, (rate, rate), b, relu)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want.to(torch.bfloat16))
+    if relu:
+        assert bool((got >= 0).all()) and bool((got == 0).any())
+    assert torch.equal(dd.depthwise_dilated(x, w, rate, (rate, rate), b,
+                                            relu), got)
+    assert torch.equal(dd.depthwise_dilated_plain(x, w, rate, (rate, rate)),
+                       F.conv2d(x, w.permute(2, 3, 0, 1),
+                                padding=(rate, rate), dilation=rate,
+                                groups=12))
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("rate", [1, 2])
+def test_depthwise_conv2d_bias_routes_and_flags_its_epilogue(rate, relu):
+    """``layers.depthwise_conv2d_bias`` hands a dilated bf16 convolution
+    its bias and ReLU in the kernel's epilogue (here its plain version)
+    and says so; rate 1 adds them as passes after ``F.conv2d``, the f32
+    bias to the bf16 output rounded once."""
+    x = torch.randn(2, 16, 13, 15)
+    w, b = torch.randn(3, 3, 16, 1) * 0.5, torch.randn(16)
+    y, fused = layers.depthwise_conv2d_bias(x, w, b, rate=rate,
+                                            compute_dtype=torch.bfloat16,
+                                            relu=relu)
+    assert fused is (rate > 1)
+    xb = x.to(torch.bfloat16, memory_format=torch.channels_last)
+    wb = w.to(torch.bfloat16)
+    if fused:
+        want = dd.depthwise_dilated_plain(xb, wb, rate, (rate, rate), b,
+                                          relu)
+    else:
+        want = (layers.depthwise_conv2d(xb, wb, rate=rate).float()
+                + b[:, None, None]).to(torch.bfloat16)
+        want = torch.relu(want) if relu else want
+    assert torch.equal(y, want)
 
 
 # --- routing ---------------------------------------------------------------
@@ -213,18 +283,26 @@ def _bad(case):
         x = _input((2, 16, 4, 13), 0)
     elif case == "meta_device":
         x, w = x.to("meta"), w.to("meta")
-    return x, w, rate, padding
+    bias = None
+    if case == "bias_bf16":
+        bias = torch.zeros(16, dtype=torch.bfloat16)
+    elif case == "bias_channels":
+        bias = torch.zeros(8)
+    elif case == "bias_meta":
+        bias = torch.zeros(16, device="meta")
+    return x, w, rate, padding, bias, case == "relu_without_bias"
 
 
 @pytest.mark.parametrize("case", [
     "float32_input", "float32_weight", "nchw", "sliced_columns",
     "odd_channels", "weight_5x5", "weight_channels", "three_dims", "rate_0",
     "rate_256", "rate_float", "padding_negative", "padding_three",
-    "empty_output", "meta_device"])
+    "empty_output", "meta_device", "bias_bf16", "bias_channels",
+    "bias_meta", "relu_without_bias"])
 def test_wrapper_raises_on_what_the_kernel_does_not_take(case):
-    x, w, rate, padding = _bad(case)
+    x, w, rate, padding, bias, relu = _bad(case)
     with pytest.raises((ValueError, TypeError)):
-        dd.depthwise_dilated(x, w, rate, padding)
+        dd.depthwise_dilated(x, w, rate, padding, bias, relu)
 
 
 # --- the kernel's arithmetic, emulated --------------------------------------
@@ -393,6 +471,12 @@ CELL_SHAPES = [   # (n, c, h, w, rate): every dilated depthwise of the cells
 ]
 
 
+STRIP_SHAPES = [   # batch 1, where the plan cuts rows into strips
+    (1, 1024, 33, 65, 2), (1, 960, 32, 64, 2),
+    (1, 12, 97, 70, 3),   # channels not a multiple of 8, a short last strip
+]
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the dilated depthwise kernel is "
@@ -417,10 +501,50 @@ def test_kernel_within_an_ulp_of_cudnn(shape):
     assert build.launch_count("depthwise_dilated") == launches + 2
 
 
-STRIP_SHAPES = [   # batch 1, where the plan cuts rows into strips
-    (1, 1024, 33, 65, 2), (1, 960, 32, 64, 2),
-    (1, 12, 97, 70, 3),   # channels not a multiple of 8, a short last strip
-]
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CELL_SHAPES + STRIP_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in CELL_SHAPES + STRIP_SHAPES])
+def test_bias_free_kernel_equals_cudnn_bit_for_bit(shape):
+    """The instantiation without an epilogue is the kernel as it was:
+    cuDNN's bits at every shape of the cells and the row strips."""
+    _need_card()
+    n, c, h, wd, rate = shape
+    x = _input((n, c, h, wd), rate + 11, "cuda")
+    w = _weight(c, rate + 11, "cuda").to(torch.bfloat16)
+    got = dd.depthwise_dilated(x, w, rate, (rate, rate))
+    want = dd.depthwise_dilated_plain(x, w, rate, (rate, rate))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True], ids=["bias", "bias_relu"])
+@pytest.mark.parametrize("shape", CELL_SHAPES + STRIP_SHAPES,
+                         ids=["x".join(map(str, s))
+                              for s in CELL_SHAPES + STRIP_SHAPES])
+def test_epilogue_within_an_ulp_of_f32_rounded_once(shape, relu,
+                                                    monkeypatch):
+    """The bias (and ReLU) epilogue against the float32 convolution plus
+    the bias (then the ReLU) rounded to bf16 once (the plain version,
+    TF32 off), at both paddings; one launch and one count each."""
+    _need_card()
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    n, c, h, wd, rate = shape
+    x = _input((n, c, h, wd), rate + 5, "cuda")
+    w = _weight(c, rate + 5, "cuda").to(torch.bfloat16)
+    b = _bias(c, rate + 5, "cuda")
+    launches = build.launch_count("depthwise_dilated")
+    counted = GLOBAL_TIMER.counts.get(COUNTER, 0)
+    for padding in ((rate, rate), (rate, 0)):
+        got = dd.depthwise_dilated(x, w, rate, padding, b, relu)
+        want = dd.depthwise_dilated_plain(x, w, rate, padding, b, relu)
+        torch.cuda.synchronize()
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        _agree(got, want, x, w, rate, padding, b)
+        if relu:
+            assert bool((got >= 0).all())
+    assert build.launch_count("depthwise_dilated") == launches + 2
+    assert GLOBAL_TIMER.counts.get(COUNTER, 0) == counted + 2
 
 
 @pytest.mark.cuda
@@ -458,15 +582,11 @@ def _frames(n, h, w, seed):
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-@pytest.mark.cuda
-def test_os8_chunk_ids_match_the_cudnn_route(monkeypatch):
-    """One chunk of 8 padded 1025x2049 frames through the OS8 teacher's
-    fast path: 57 launches, and ids equal to the cuDNN route's on 99.9%
-    of pixels (the 57 convolutions round within an ulp of cuDNN's, and
-    the difference reaches a pixel's argmax only at near-ties).  BN
-    statistics are the batch moments of a float32 forward, so seeded
-    weights give activations of a trained network's scale."""
-    _need_card()
+def _calibrated_os8(monkeypatch):
+    """The OS8 teacher's seeded params on the card with BN statistics the
+    batch moments of a float32 forward of two frames, so seeded weights
+    give activations of a trained network's scale, and one chunk of 8
+    padded 1025x2049 frames."""
     from ams_tpu_torch.models import xception_deeplab as xd
 
     config = xd.deeplab_teacher(8, 4)
@@ -483,6 +603,19 @@ def test_os8_chunk_ids_match_the_cudnn_route(monkeypatch):
         m.setattr(layers, "batch_norm_infer", batch_moments)
         xd.teacher_logits_nchw(params, frames[:2], out_hw=None,
                                config=config)
+    return config, params, frames
+
+
+@pytest.mark.cuda
+def test_os8_chunk_ids_match_the_cudnn_route(monkeypatch):
+    """One chunk of 8 padded 1025x2049 frames through the OS8 teacher's
+    fast path: 57 launches, and ids equal to the cuDNN route's on 99.9%
+    of pixels (the 57 convolutions round within an ulp of cuDNN's, and
+    the difference reaches a pixel's argmax only at near-ties)."""
+    _need_card()
+    from ams_tpu_torch.models import xception_deeplab as xd
+
+    config, params, frames = _calibrated_os8(monkeypatch)
     with torch.inference_mode():
         launches = build.launch_count("depthwise_dilated")
         counted = GLOBAL_TIMER.counts.get(COUNTER, 0)
@@ -497,3 +630,54 @@ def test_os8_chunk_ids_match_the_cudnn_route(monkeypatch):
     agree = (ids == ref).float().mean().item()
     assert agree >= 0.999, agree
     assert len(torch.unique(ref)) > 1
+
+
+@pytest.mark.cuda
+def test_os8_chunk_folded_ids_match_the_unfused_route(monkeypatch):
+    """The labeler's route, BN folded in bf16 (``fold_teacher``), on one
+    OS8 chunk of 8 padded 1025x2049 frames: still 57 launches, 131
+    offsets in epilogues and 15 as passes, and on the two frames held
+    against the float32 forward, ids equal to the unfused bf16 route's
+    and to the float32 argmax on 99% of the pixels whose float32 top-two
+    margin exceeds 1% of max|logit| (the bar of the port's bf16 tests,
+    off the near-ties either bf16 route can flip).  Weights and BN
+    statistics are the benchmark's (``perfbench``: offsets U(1, 2),
+    statistics calibrated by its reference): with zero offsets, as in
+    ``_calibrated_os8``, a deep random network amplifies rounding from
+    layer to layer until every bf16 route, folded or not, agrees with the
+    float32 argmax on about a quarter of those pixels."""
+    _need_card()
+    from ams_tpu_torch.models import xception_deeplab as xd
+    from perfbench.entries.labeler import pad_like_ams
+    from perfbench.lib import frames as bench_frames
+    from perfbench.lib import weights
+    from perfbench.reference import teacher_v3plus as ref
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    config = xd.DEEPLABV3PLUS_OS8
+    params = weights.init(ref.param_specs(), 11, "cuda")
+    ref.calibrate(params, pad_like_ams(bench_frames.frames(
+        4, 1024, 2048, 12, "cuda")), output_stride=8)
+    frames = pad_like_ams(bench_frames.frames(8, 1024, 2048, 13, "cuda"))
+    folded = xd.fold_teacher(params, torch.bfloat16)
+    with torch.inference_mode():
+        ref_ids = xd.teacher_predict_fast(params, frames, config=config)
+        launches = build.launch_count("depthwise_dilated")
+        before = dict(GLOBAL_TIMER.counts)
+        ids = xd.teacher_predict_fast(folded, frames, config=config)
+        torch.cuda.synchronize()
+        assert build.launch_count("depthwise_dilated") == launches + 57
+        for name, want in (("teacher/bn_epilogue", 131),
+                           ("teacher/bn_pass", 15), (COUNTER, 57)):
+            assert GLOBAL_TIMER.counts.get(name, 0) - before.get(name, 0) \
+                == want, name
+        f32 = xd.teacher_logits_nchw(params, frames[:2], config=config)
+    top2 = f32.topk(2, dim=1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > 0.01 * f32.abs().max()
+    assert decisive.float().mean().item() > 0.5
+    assert len(torch.unique(ref_ids)) > 1
+    agree = (ids[:2] == ref_ids[:2])[decisive].float().mean().item()
+    assert agree >= 0.99, agree
+    truth = (ids[:2] == f32.argmax(1))[decisive].float().mean().item()
+    assert truth >= 0.99, truth

@@ -19,7 +19,15 @@ Tolerances, with what was measured on this host (2 threads):
   against JAX's (the Pallas kernel in interpret mode): ids agree on at
   least 0.99 of pixels, the bar tests/test_torch_bf16_network.py holds
   the bf16 student to (bf16 rounds after every operation in the port,
-  inside XLA's fused chains in JAX).
+  inside XLA's fused chains in JAX);
+- BN folded into the convolutions (``fold_teacher``), on the benchmark's
+  seeded weights with BN statistics calibrated by its reference (scales
+  U(0.75, 1.25), offsets U(1, 2), statistics from the frames), for the
+  AMS teacher and DeepLabV3+ at output stride 8: the float32 grid logits
+  within 1e-4 * max|unfused| (measured 3.2e-6 and 2.2e-6 on 2 threads);
+  raw params run every BN unfused, as before; the 1x1 GEMM route
+  (``layers.conv2d_bias``) in bf16 within one bf16 rounding of the
+  float32 convolution plus its bias.
 """
 
 import json
@@ -41,15 +49,26 @@ from ams_tpu_torch.convert import params_from_numpy
 from ams_tpu_torch.models import layers
 from ams_tpu_torch.models import xception_deeplab as tx
 from ams_tpu_torch.models.resize import resize_nearest_ac
+from ams_tpu_torch.utils.trace import GLOBAL_TIMER
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "tools"))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+sys.path.insert(0, ROOT)
 from teacher_oracle import params_for  # noqa: E402
+from perfbench.entries.labeler import pad_like_ams  # noqa: E402
+from perfbench.lib import frames as bench_frames  # noqa: E402
+from perfbench.lib import weights  # noqa: E402
+from perfbench.reference import teacher as ref_os16  # noqa: E402
+from perfbench.reference import teacher_v3plus as ref_os8  # noqa: E402
+from perfbench.reference.common import tf32_off  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 HEIGHTS = (65, 129)
 TIE = 1e-3
 FAST_AGREE = 0.99
+CONFIGS = [tx.TEACHER_OS16, tx.DEEPLABV3PLUS_OS8]
+CONFIG_IDS = ["ams", "os8"]
+BN_SITES = {tx.TEACHER_OS16: 141, tx.DEEPLABV3PLUS_OS8: 146}
 
 
 @pytest.fixture(autouse=True)
@@ -248,17 +267,16 @@ def test_padding_rejects_other_strings():
         layers.depthwise_conv2d(x, w, padding="VALID")
 
 
-def test_bf16_predict_fast_agrees_with_jax(tf_cases, torch_params,
-                                           jax_params):
+def _bf16_fast_agrees_with_jax(tf_cases, params, jax_params, route):
     frames = tf_cases[HEIGHTS[1]]["frames"]
     want = np.asarray(jax.jit(jx.teacher_predict_fast)(
         jax_params, jnp.asarray(frames)))
     with torch.inference_mode():
         f = torch.from_numpy(frames)
-        grid = tx.teacher_logits_nchw(torch_params, f,
+        grid = tx.teacher_logits_nchw(params, f,
                                       compute_dtype=torch.bfloat16,
                                       out_hw=None)
-        got = tx.teacher_predict_fast(torch_params, f).numpy()
+        got = tx.teacher_predict_fast(params, f).numpy()
     # the grid goes to K1 as the bf16 forward leaves it: channels-last
     assert grid.dtype == torch.bfloat16
     assert grid.is_contiguous(memory_format=torch.channels_last)
@@ -266,9 +284,23 @@ def test_bf16_predict_fast_agrees_with_jax(tf_cases, torch_params,
     agree = float((got == want).mean())
     f32_agree = float((got == tf_cases[HEIGHTS[1]]["logits"].argmax(-1))
                       .mean())
-    print("bf16 fast path: ids agree with JAX's on %.5f of pixels, with "
-          "the f32 TF argmax on %.5f" % (agree, f32_agree))
+    print("bf16 fast path (%s): ids agree with JAX's on %.5f of pixels, "
+          "with the f32 TF argmax on %.5f" % (route, agree, f32_agree))
     assert agree >= FAST_AGREE
+
+
+def test_bf16_predict_fast_agrees_with_jax(tf_cases, torch_params,
+                                           jax_params):
+    _bf16_fast_agrees_with_jax(tf_cases, torch_params, jax_params, "raw")
+
+
+def test_bf16_folded_predict_fast_agrees_with_jax(tf_cases, torch_params,
+                                                  jax_params):
+    """The labeler's bf16 route, BN folded at load (``fold_teacher``),
+    against the JAX package's bf16 fast path on all pixels, at the bar
+    the raw route is held to."""
+    folded = tx.fold_teacher(torch_params, torch.bfloat16)
+    _bf16_fast_agrees_with_jax(tf_cases, folded, jax_params, "folded")
 
 
 @pytest.mark.cuda
@@ -281,7 +313,9 @@ def test_k1_on_teacher_grid_and_one_labeler_chunk_on_card():
 
     rng = np.random.RandomState(3)
     frames = rng.randint(0, 256, (2, 256, 512, 3)).astype(np.uint8)
-    params = tx.init_teacher_params(0, device="cuda")
+    # the labeler's bf16 params: BN folded at load
+    params = tx.fold_teacher(tx.init_teacher_params(0, device="cuda"),
+                             torch.bfloat16)
     padded = torch.from_numpy(np.pad(frames, ((0, 0), (1, 0), (1, 0), (0, 0)),
                                      mode="symmetric")).cuda()
     with torch.inference_mode():
@@ -301,3 +335,121 @@ def test_k1_on_teacher_grid_and_one_labeler_chunk_on_card():
     assert build.launch_count("resize_argmax") == before + 1
     assert ids.shape == (2, 256, 512) and ids.dtype == np.uint8
     np.testing.assert_array_equal(ids, got.cpu().numpy()[:, 1:, 1:])
+
+
+# --- BN folded into the convolutions ------------------------------------------
+
+@pytest.fixture(scope="module")
+def calibrated():
+    """{config: (the benchmark's seeded weights with BN statistics
+    calibrated by its reference, two seeded frames of 64x128 padded as
+    AMS pads to 65x129)}."""
+    tf32_off()
+    padded = pad_like_ams(bench_frames.frames(2, 64, 128, 4, "cpu"))
+    out = {}
+    for config, ref, kw in ((tx.TEACHER_OS16, ref_os16, {}),
+                            (tx.DEEPLABV3PLUS_OS8, ref_os8,
+                             {"output_stride": 8})):
+        p = weights.init(ref.param_specs(), 9, "cpu")
+        ref.calibrate(p, padded, **kw)
+        out[config] = (p, padded)
+    return out
+
+
+@pytest.mark.parametrize("config", CONFIGS, ids=CONFIG_IDS)
+def test_folded_f32_grid_logits_equal_the_unfused(calibrated, config):
+    params, frames = calibrated[config]
+    scales = [params[k] for k in params if k.endswith("/gamma")]
+    assert min(float(g.min()) for g in scales) < 0.8
+    folded = tx.fold_teacher(params)
+    with torch.inference_mode():
+        want = tx.teacher_logits_nchw(params, frames, out_hw=None,
+                                      config=config)
+        got = tx.teacher_logits_nchw(folded, frames, out_hw=None,
+                                     config=config)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    print("folded f32 grid: max |folded - unfused| / max|unfused| = %.3g"
+          % err)
+    assert err <= 1e-4
+
+
+@pytest.mark.parametrize("config", CONFIGS, ids=CONFIG_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_raw_params_run_every_bn_unfused(calibrated, monkeypatch, config,
+                                         dtype):
+    """Raw params take the unfused route: one ``batch_norm_infer`` per BN
+    site, no BN counter, and the forward of before."""
+    params, frames = calibrated[config]
+    calls = []
+    infer = layers.batch_norm_infer
+
+    def spy(x, *args, **kwargs):
+        calls.append(x.dtype)
+        return infer(x, *args, **kwargs)
+
+    monkeypatch.setattr(layers, "batch_norm_infer", spy)
+    GLOBAL_TIMER.reset()
+    with torch.inference_mode():
+        tx.teacher_logits_nchw(params, frames[:1], out_hw=None,
+                               compute_dtype=dtype, config=config)
+    assert len(calls) == BN_SITES[config]
+    assert set(calls) == {dtype}
+    assert not any(k.startswith("teacher/bn_") for k in GLOBAL_TIMER.counts)
+    GLOBAL_TIMER.reset()
+
+
+@pytest.mark.parametrize("config", CONFIGS, ids=CONFIG_IDS)
+def test_folded_params_refuse_width_shards(calibrated, config):
+    from ams_tpu_torch.parallel import spatial
+
+    params, frames = calibrated[config]
+    shards = spatial.shard_width(frames[:1], ["cpu", "cpu"], dim=2)
+    with pytest.raises(ValueError, match="width shards"):
+        tx.teacher_logits_nchw(tx.fold_teacher(params), shards,
+                               config=config)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 11, 16, 24),
+                                            (1, 1, 1, 32, 8)])
+def test_conv2d_bias_gemm_route(n, h, w, cin, cout, relu):
+    """A bf16 1x1 at stride 1 is one GEMM on the channels-last view with
+    the bias (and ReLU) in its epilogue, and returns the channels-last
+    output; within one bf16 rounding of the float32 convolution plus the
+    bias (bf16's)."""
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(n, cin, h, w, generator=g)
+    wt = torch.randn(1, 1, cin, cout, generator=g) * 0.2
+    b = torch.randn(cout, generator=g)
+    y, fused = layers.conv2d_bias(x, wt, b, compute_dtype=torch.bfloat16,
+                                  relu=relu)
+    assert fused and y.dtype == torch.bfloat16
+    assert y.shape == (n, cout, h, w)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    xb, wb = x.bfloat16().float(), wt.bfloat16().float()
+    want = torch.nn.functional.conv2d(xb, wb.permute(3, 2, 0, 1)) \
+        + b.bfloat16().float()[:, None, None]
+    if relu:
+        want = torch.relu(want)
+    np.testing.assert_allclose(y.float().numpy(), want.numpy(),
+                               rtol=2 ** -7, atol=2 ** -7)
+
+
+@pytest.mark.parametrize("case", ["stride2", "kernel3x3", "nchw_f32"])
+def test_conv2d_bias_pass_route(case):
+    """Everything else is ``conv2d`` then the bias as a pass, the sum
+    rounded once to the output's type."""
+    x, wt = torch.randn(2, 8, 9, 11), torch.randn(1, 1, 8, 6) * 0.3
+    b, kw = torch.randn(6), {"compute_dtype": torch.bfloat16}
+    if case == "stride2":
+        kw["stride"] = 2
+    elif case == "kernel3x3":
+        wt = torch.randn(3, 3, 8, 6) * 0.1
+    else:
+        kw["compute_dtype"] = torch.float32
+    y, fused = layers.conv2d_bias(x, wt, b, **kw)
+    assert not fused
+    want = layers.conv2d(x, wt, **kw)
+    assert torch.equal(y, (want.float() + b[:, None, None]).to(want.dtype))

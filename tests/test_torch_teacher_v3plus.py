@@ -11,7 +11,18 @@ benchmark's cell makes them.  Gates, with TF32 off:
   stride 8 and 2.1e-6 at 16 with the decoder, on 2 frames of 129x257 on
   2 CPU threads), at 16 so that the decoder is held alone;
 - the float32 labeler's ids equal to the reference's argmax wherever its
-  top-two margin exceeds 2e-4 * max|ref|, twice the logits' gate.
+  top-two margin exceeds 2e-4 * max|ref|, twice the logits' gate;
+- the bfloat16 labeler, which folds BN into the convolutions at load
+  (``fold_teacher``), against the unfused bf16 forward of the raw params
+  for DeepLabV3+ at 8 and the AMS teacher, on 2 frames of 64x128: ids
+  agree on at least 0.99 of the pixels whose float32 top-two margin
+  exceeds 1% of max|logit| (the bar of the port's bf16 tests, off the
+  near-ties that the bf16 routes' grid error, up to 3-5% of max|logit|,
+  can flip: over every pixel the two bf16 routes agree on 0.970-0.978 of
+  them here, while each agrees with the float32 argmax on 0.971-0.989;
+  measured 0.998-1.0 on the decisive pixels); every BN site counted once
+  per forward, as an epilogue or as a pass (``teacher/bn_epilogue``,
+  ``teacher/bn_pass``): 131 and 15 at 8, 76 and 65 at 16.
 """
 
 import json
@@ -33,6 +44,7 @@ from ams_tpu_torch.data.video import (  # noqa: E402
     open_video,
     write_synthetic_clip,
 )
+from ams_tpu_torch.models import layers  # noqa: E402
 from ams_tpu_torch.models import xception_deeplab as tx  # noqa: E402
 from ams_tpu_torch.ops import fused_resize_argmax as k1  # noqa: E402
 from ams_tpu_torch.runtime import labeler as lab  # noqa: E402
@@ -41,6 +53,7 @@ from perfbench.entries.labeler import pad_like_ams  # noqa: E402
 from perfbench.lib import frames as bench_frames  # noqa: E402
 from perfbench.lib import spans, weights  # noqa: E402
 from perfbench.lib.trace import Trace  # noqa: E402
+from perfbench.reference import teacher as ref_os16  # noqa: E402
 from perfbench.reference import teacher_v3plus as ref  # noqa: E402
 from perfbench.reference.common import resize_ac, tf32_off  # noqa: E402
 
@@ -50,6 +63,13 @@ DECODER_PARAMETERS = 165_168
 OS16_DECODER = tx.TeacherConfig(16, 4, True)
 CONFIG_FILE = os.path.join(ROOT, "perfbench", "configs",
                            "xception65-deeplabv3plus-os8-cityscapes.json")
+FOLD_CONFIGS = [tx.TEACHER_OS16, tx.DEEPLABV3PLUS_OS8]
+FOLD_IDS = ["ams", "os8"]
+# {config: (offsets in an epilogue, offsets as a pass)} per bf16 forward:
+# at 8, 63 pointwise, 57 dilated depthwise, 9 head and decoder 1x1s and 2
+# stride-1 shortcuts, against 2 stems, 11 rate-1 depthwise and 2 stride-2
+# shortcuts; at 16, 63, 6, 6 and 1 against 2, 60 and 3
+BN_SPLIT = {tx.TEACHER_OS16: (76, 65), tx.DEEPLABV3PLUS_OS8: (131, 15)}
 # the AMS teacher's block table before configurations existed
 TODAY = (
     [("entry_flow/block1/unit_1", [128, 128, 128], 2, 1, "conv")] +
@@ -337,3 +357,135 @@ def test_teacher_forward_reader(global_timer, monkeypatch):
     assert read(t, decoder[:1]) is None
     assert read(t, []) is None
     assert read(None, decoder) is None
+
+
+# --- BN folded into the convolutions ------------------------------------------
+
+@pytest.fixture(scope="module")
+def fold_cases():
+    """{config: (the benchmark's seeded weights calibrated by its
+    reference, 2 seeded frames of 64x128)}."""
+    tf32_off()
+    raw = bench_frames.frames(2, 64, 128, 4, CPU)
+    padded = pad_like_ams(raw)
+    out = {}
+    for config, reference, kw in ((tx.TEACHER_OS16, ref_os16, {}),
+                                  (tx.DEEPLABV3PLUS_OS8, ref,
+                                   {"output_stride": 8})):
+        p = weights.init(reference.param_specs(), 9, CPU)
+        reference.calibrate(p, padded, **kw)
+        out[config] = (p, raw)
+    return out
+
+
+@pytest.mark.parametrize("config", FOLD_CONFIGS, ids=FOLD_IDS)
+def test_fold_teacher_folds_every_bn(fold_cases, config):
+    """Every BN's scale goes into its convolution's weights (cast once to
+    the dtype asked for: within bf16's rounding of the float32 product)
+    and its offset into a ``folded_bias``, with the trunk's eps or the
+    head's: float32 for a depthwise convolution, which adds it to its f32
+    sum, the dtype asked for otherwise; the logits layer is untouched."""
+    p, _ = fold_cases[config]
+    folded = tx.fold_teacher(p, torch.bfloat16)
+    prefixes = [k[:-len("/BatchNorm/gamma")] for k in p
+                if k.endswith("/BatchNorm/gamma")]
+    assert len(prefixes) == sum(BN_SPLIT[config])
+    assert not any("/BatchNorm/" in k for k in folded)
+    assert set(folded) == {k for k in p if "/BatchNorm/" not in k} | {
+        q + "/folded_bias" for q in prefixes}
+    for q in prefixes:
+        eps = layers.BN_EPS if q.startswith("xception_65/") \
+            else tx.HEAD_BN_EPS
+        bn = {k: p[q + "/BatchNorm/" + k] for k in (
+            "gamma", "beta", "moving_mean", "moving_variance")}
+        scale = bn["gamma"] / torch.sqrt(bn["moving_variance"] + eps)
+        wk = q + ("/depthwise_weights" if q.endswith("_depthwise")
+                  else "/weights")
+        want_w = p[wk] * (scale[:, None] if q.endswith("_depthwise")
+                          else scale)
+        assert folded[wk].dtype == torch.bfloat16
+        torch.testing.assert_close(folded[wk].float(), want_w,
+                                   rtol=2 ** -8, atol=1e-30, msg=wk)
+        bias = folded[q + "/folded_bias"]
+        depthwise = q.endswith("_depthwise")
+        assert bias.dtype == (torch.float32 if depthwise
+                              else torch.bfloat16)
+        torch.testing.assert_close(
+            bias.float(), bn["beta"] - bn["moving_mean"] * scale,
+            rtol=1e-6 if depthwise else 2 ** -8, atol=1e-6)
+    for k in ("logits/semantic/weights", "logits/semantic/biases"):
+        assert folded[k] is p[k]
+
+
+@pytest.mark.parametrize("config", FOLD_CONFIGS, ids=FOLD_IDS)
+def test_bf16_labeler_folds_and_agrees_with_the_unfused_forward(
+        fold_cases, config, tmp_path, monkeypatch):
+    p, raw = fold_cases[config]
+    path = str(tmp_path / "teacher.npz")
+    np.savez(path, **{k: v.numpy() for k, v in p.items()})
+    folds = []
+    monkeypatch.setattr(lab, "fold_teacher",
+                        lambda *a: folds.append(a[1]) or tx.fold_teacher(*a))
+    label = lab.make_teacher_labeler(path, compute_dtype="bfloat16",
+                                     batch=2, device="cpu",
+                                     teacher_config=config)
+    assert folds == [torch.bfloat16]
+    ids = label(raw.numpy())
+    with torch.inference_mode():
+        padded = pad_like_ams(raw)
+        want = tx.teacher_predict_fast(p, padded, config=config)
+        f32 = tx.teacher_logits_nchw(p, padded, config=config)
+    want = want[:, 1:, 1:].numpy()
+    f32 = f32[:, :, 1:, 1:]
+    top2 = f32.topk(2, dim=1).values
+    decisive = ((top2[:, 0] - top2[:, 1])
+                > 0.01 * float(f32.abs().max())).numpy()
+    assert decisive.mean() > 0.8 and len(np.unique(want)) > 1
+    agree = float((ids == want)[decisive].mean())
+    f32_ids = f32.argmax(1).numpy()
+    print("folded bf16 labeler: ids agree with the unfused bf16 forward's "
+          "on %.5f of the decisive pixels (%.5f of all); with the f32 "
+          "argmax on %.5f of all pixels, the unfused route on %.5f"
+          % (agree, float((ids == want).mean()),
+             float((ids == f32_ids).mean()), float((want == f32_ids).mean())))
+    assert agree >= 0.99
+    assert float((ids == f32_ids)[decisive].mean()) >= 0.99
+    # the fold takes bf16 roundings away (the scale's, BN's intermediate)
+    # and adds none: its grid logits lie no farther from the f32 grid's
+    # than the unfused route's, over all pixels
+    with torch.inference_mode():
+        grids = [tx.teacher_logits_nchw(q, padded, out_hw=None,
+                                        compute_dtype=torch.bfloat16,
+                                        config=config).float()
+                 for q in (p, tx.fold_teacher(p, torch.bfloat16))]
+        grid32 = tx.teacher_logits_nchw(p, padded, out_hw=None,
+                                        config=config)
+    unfused_err, folded_err = (float((g - grid32).norm() / grid32.norm())
+                               for g in grids)
+    print("grid logits' relative error against f32: folded %.5f, unfused "
+          "%.5f" % (folded_err, unfused_err))
+    assert folded_err <= unfused_err
+    lab.make_teacher_labeler(path, compute_dtype="float32", batch=2,
+                             device="cpu", teacher_config=config)
+    assert folds == [torch.bfloat16]        # float32 stays unfolded
+
+
+@pytest.mark.parametrize("config", FOLD_CONFIGS, ids=FOLD_IDS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_bn_counters_cover_every_site(fold_cases, global_timer, config,
+                                      dtype):
+    """One count per BN site and forward, as an epilogue or as a pass; in
+    bf16 the CPU takes the card's routes (the dilated kernel's plain
+    version adds its epilogue), so the split is the card's."""
+    p, raw = fold_cases[config]
+    folded = tx.fold_teacher(p, dtype)
+    with torch.inference_mode():
+        for _ in range(2):
+            tx.teacher_logits_nchw(folded, pad_like_ams(raw), out_hw=None,
+                                   compute_dtype=dtype, config=config)
+    fused = global_timer.counts["teacher/bn_epilogue"]
+    passes = global_timer.counts["teacher/bn_pass"]
+    assert fused + passes == 2 * sum(BN_SPLIT[config])
+    if dtype == torch.bfloat16:
+        assert (fused, passes) == tuple(2 * n for n in BN_SPLIT[config])

@@ -34,7 +34,9 @@ SPAN_READERS = ("label_idle_host_ms_per_call",
                 "client_dispatch_ms_per_batch",
                 "client_pinned_reuse_pct",
                 "label_idle_host_ms_per_call.os8",
-                "teacher_forward_ms_per_chunk.os8")
+                "teacher_forward_ms_per_chunk.os8",
+                "teacher_bn_epilogue_pct.label",
+                "teacher_bn_epilogue_pct.os8")
 
 
 @pytest.fixture(autouse=True)
@@ -346,6 +348,9 @@ def test_reader_returns_none_without_records(name, global_timer):
     ("client_dispatch_ms_per_batch", 25 / 1e6),
     # one fresh block among four pinned downloads
     ("client_pinned_reuse_pct", 75.0),
+    # three offsets in an epilogue, one as a pass
+    ("teacher_bn_epilogue_pct.label", 75.0),
+    ("teacher_bn_epilogue_pct.os8", 75.0),
 ])
 def test_reader_reads_the_records(name, want, global_timer, monkeypatch):
     recs = [rec("labeler/label", 0, 450, 0), rec("labeler/pad", 0, 100, 1, 0),
@@ -359,7 +364,10 @@ def test_reader_reads_the_records(name, want, global_timer, monkeypatch):
             rec("network/pinned_download", 2090, 2090, 9, 5),
             rec("network/pinned_fresh", 2090, 2090, 10, 5)] \
         + [rec("network/pinned_download", t, t, 11 + i)
-           for i, t in enumerate((3000, 3100, 3200))]
+           for i, t in enumerate((3000, 3100, 3200))] \
+        + [rec("teacher/bn_epilogue", t, t, 14 + i, 3)
+           for i, t in enumerate((1100, 1110, 1120))] \
+        + [rec("teacher/bn_pass", 1130, 1130, 17, 3)]
     monkeypatch.setattr(global_timer, "records", recs)
     got = load_reader(name).read(SimpleNamespace(trace_data=synthetic_trace()))
     assert got == pytest.approx(want)
